@@ -2,8 +2,9 @@
 
     python3 chip_profile.py
 
-Runs the canonical ``parameter_scan`` (n = m = 1000, d = 2, p = 0.2,
-s = 5, 30 epochs, reps = 4; ``bench.py:502-505``) on the card:
+Runs the canonical ``parameter_scan`` (``chip_smoke.CANON``: n = m = 1000,
+d = 2, p = 0.2, s = 5, 30 epochs, reps = 4; ``bench.py:502-505``) on the
+card:
 
 1. once at 2 epochs to warm up (library handles, lazy module loads, the
    kernel build);
@@ -21,15 +22,14 @@ card.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-CANON = dict(n=1000, m=1000, d=2, p=0.2, s=[5.0], lr=1e-3,
-             weight_decay=5e-6, num_epochs=30, reps=4)
+from chip_smoke import CANON, smi_line
+
 TIMED_CALLS = 3
 
 
@@ -47,10 +47,7 @@ def main() -> int:
     import mfcd_tpu_torch
     from torch.profiler import ProfilerActivity, profile
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = smi_line()
     runs = CANON["reps"] * len(CANON["s"])
 
     mfcd_tpu_torch.parameter_scan(**dict(CANON, num_epochs=2))

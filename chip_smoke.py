@@ -40,10 +40,13 @@ CANON = dict(n=1000, m=1000, d=2, p=0.2, s=[5.0], lr=1e-3,
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# Kernel-vs-plain bound: the orders of the gradient sums (index_add_ on the
-# card adds with atomics) and of the loss reduction differ; every other
-# operation rounds alike (--fmad=false).
+# Kernel-vs-plain bound, per tensor: max|diff| <= KERNEL_RTOL * max|ref| +
+# KERNEL_ATOL.  The orders of the gradient sums (index_add_ on the card adds
+# with atomics) and of the loss reduction differ; every other operation
+# rounds alike (--fmad=false).  Scaling by each tensor's own magnitude holds
+# the moments (nu ~ 1e-5) as tightly as U and V (~ 1).
 KERNEL_RTOL = 1e-5
+KERNEL_ATOL = 1e-12
 # Card-vs-CPU bound on the 23 result keys: the card's QR, expf and sums
 # round differently from the CPU's (~1e-6 relative on X); a BTL vote or a
 # 0.5-threshold prediction whose margin is below that can flip, moving a
@@ -130,19 +133,22 @@ def compare_epoch(inp, label):
         clone_state(inp["state"]), *args, pack=inp["pack"])
     torch.cuda.synchronize()
     worst = 0.0
+    errs = []
     for name, a, b in zip(("loss",) + kernels.EpochState._fields,
                           (ref_loss,) + tuple(ref_state),
                           (got_loss,) + tuple(got_state)):
         if not torch.isfinite(b).all():
             fail(f"{label}: non-finite {name} from the kernel")
         err = float((a - b).abs().max())
-        scale = max(float(a.abs().max()), 1e-30)
+        scale = float(a.abs().max())
         worst = max(worst, err)
-        if err > KERNEL_RTOL * max(scale, 1.0):
-            fail(f"{label}: {name} max|diff| {err:.3g} (scale {scale:.3g}) "
-                 f"> {KERNEL_RTOL} x max(scale, 1)")
-    log(f"  {label}: kernel vs plain max|diff| {worst:.3g} (bound "
-        f"{KERNEL_RTOL} x max(|ref|, 1) per tensor)")
+        errs.append(f"{name} {err:.3g}/{scale:.3g}")
+        if err > KERNEL_RTOL * scale + KERNEL_ATOL:
+            fail(f"{label}: {name} max|diff| {err:.3g} > {KERNEL_RTOL} x "
+                 f"max|ref| {scale:.3g} + {KERNEL_ATOL}")
+    log(f"  {label}: kernel vs plain max|diff|/max|ref| "
+        + ", ".join(errs)
+        + f" (bound {KERNEL_RTOL} x max|ref| + {KERNEL_ATOL} per tensor)")
     return worst
 
 

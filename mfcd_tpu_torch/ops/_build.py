@@ -20,7 +20,6 @@ import os
 import shutil
 import subprocess
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,18 +55,28 @@ def _target(src: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def _build_one(src: str, force: bool = False) -> str:
+def _start(src: str, force: bool = False):
+    """Start ``nvcc`` on ``src`` unless its library exists (and not
+    ``force``); returns (source, library path, process or None)."""
     out = _target(src)
     if os.path.exists(out) and not force:
-        return out
+        return src, out, None
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    BUILD_LOGS[os.path.basename(src)] = proc.stdout + proc.stderr
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", f"{out}.{os.getpid()}.tmp", src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return src, out, proc
+
+
+def _finish(job) -> str:
+    src, out, proc = job
+    if proc is None:
+        return out
+    stdout, stderr = proc.communicate()
+    BUILD_LOGS[os.path.basename(src)] = stdout + stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    os.replace(tmp, out)
+        raise RuntimeError(f"nvcc failed on {src}:\n{stderr}")
+    os.replace(f"{out}.{os.getpid()}.tmp", out)
     return out
 
 
@@ -75,15 +84,14 @@ def build_all(force: bool = False) -> Dict[str, str]:
     """Compile every source (``force``) or every one not yet built, one
     ``nvcc`` per source, all started together; returns {source name:
     library path}."""
-    srcs = sources()
-    with ThreadPoolExecutor(max_workers=max(len(srcs), 1)) as pool:
-        paths = list(pool.map(lambda s: _build_one(s, force), srcs))
-    return {os.path.basename(s): p for s, p in zip(srcs, paths)}
+    jobs = [_start(src, force) for src in sources()]
+    return {os.path.basename(job[0]): _finish(job) for job in jobs}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>``, building it if needed."""
     with _lock:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(_build_one(os.path.join(CSRC, name)))
+            _libs[name] = ctypes.CDLL(_finish(_start(os.path.join(CSRC,
+                                                                  name))))
         return _libs[name]

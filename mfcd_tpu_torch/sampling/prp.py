@@ -15,8 +15,6 @@ The proximity / top_k / svd / margin fast paths are not ported yet
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from mfcd_tpu_torch.core.config import TRAIN_RATIO, VAL_RATIO
@@ -25,20 +23,15 @@ from mfcd_tpu_torch.ops.shuffle import (exact_prefix_permutation,
 from mfcd_tpu_torch.sampling.dedup import SplitArrays
 
 
-def _env_enabled() -> bool:
-    return os.environ.get("MFCD_PRP_SAMPLER", "1") != "0"
-
-
 def prp_domain_size(n: int, m: int) -> int:
     """|D| = n * m * (m - 1) ordered (u, i, j) tuples with i != j."""
     return int(n) * int(m) * (int(m) - 1)
 
 
 def prp_supported(n: int, m: int, *blocks: int) -> bool:
-    """Random-strategy gate: packable domain, blocks fit, env on."""
+    """Random-strategy gate: packable domain, blocks fit."""
     dom = prp_domain_size(n, m)
-    return (_env_enabled() and m >= 2 and dom < 2**31
-            and sum(int(b) for b in blocks) <= dom)
+    return m >= 2 and dom < 2**31 and sum(int(b) for b in blocks) <= dom
 
 
 def prp_indices(key: torch.Tensor, slots: torch.Tensor,
