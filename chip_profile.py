@@ -12,7 +12,10 @@ card:
    median seconds per run (one run = one repetition of one config);
 3. once under ``torch.profiler`` (CPU + CUDA): host time of each ``mfcd.*``
    stage span, kernel launches and device time per kernel name, and the
-   device's busy share (summed kernel time over the profiled wall).
+   device's busy share (summed kernel time over the profiled wall);
+4. ``parameter_scan_fast`` on the bench bucket (s = 5 and 6: one chunk of
+   8 runs), timed as in 2 and profiled as in 3; its ``mfcd.sweep.*`` spans
+   split the sweep's host time into dispatch, collect and export.
 
 Prints a readable report and, as its last line, one JSON object with the
 numbers and the card's name and power limit.  Exits non-zero without a
@@ -28,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import CANON, smi_line
+from chip_smoke import CANON
 
 TIMED_CALLS = 3
 
@@ -40,33 +43,31 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device", file=sys.stderr)
-        return 2
-    import mfcd_tpu_torch
-    from torch.profiler import ProfilerActivity, profile
-
-    smi = smi_line()
-    runs = CANON["reps"] * len(CANON["s"])
-
-    mfcd_tpu_torch.parameter_scan(**dict(CANON, num_epochs=2))
+def timed(label: str, runs: int, call):
+    """``TIMED_CALLS`` calls, host wall around ``torch.cuda.synchronize()``:
+    (median seconds per run, the walls)."""
     walls = []
     for _ in range(TIMED_CALLS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mfcd_tpu_torch.parameter_scan(**CANON)
+        call()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     s_per_run = float(np.median(walls)) / runs
-    print(f"timed: walls {[round(w, 4) for w in walls]} s, "
+    print(f"{label} timed: walls {[round(w, 4) for w in walls]} s, "
           f"{s_per_run:.4f} s/run (median)", flush=True)
+    return s_per_run, walls
+
+
+def profiled(label: str, call) -> dict:
+    """One ``call()`` under torch.profiler; prints and returns its split."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mfcd_tpu_torch.parameter_scan(**CANON)
+        call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Host time of the stage spans, and device time of the kernels.  A span
@@ -83,22 +84,44 @@ def main() -> int:
                      key=lambda kv: -kv[1])
     device_ms = sum(ms for _, ms, _ in kernels)
     launches = sum(n for _, _, n in kernels)
-    print(f"profiled wall {wall * 1e3:.1f} ms (profiler on); {launches} "
-          f"kernel launches, device kernel time {device_ms:.1f} ms, busy "
-          f"share {device_ms / (wall * 1e3):.3f}")
+    print(f"{label}: profiled wall {wall * 1e3:.1f} ms (profiler on); "
+          f"{launches} kernel launches, device kernel time {device_ms:.1f} "
+          f"ms, busy share {device_ms / (wall * 1e3):.3f}")
     for k, v in sorted(spans.items(), key=lambda kv: -kv[1]):
         print(f"  span {k:24s} {v:9.1f} ms host")
     for k, ms, n in kernels[:8]:
         print(f"  kernel {k[:60]:60s} {ms:8.2f} ms x{n}")
+    return {"profiled_wall_ms": wall * 1e3, "device_kernel_ms": device_ms,
+            "kernel_launches": launches,
+            "busy_share": device_ms / (wall * 1e3), "spans_host_ms": spans,
+            "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in kernels[:8]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 2
+    import mfcd_tpu_torch
+    from mfcd_tpu_torch.backend import card_line
+
+    smi = card_line()
+    runs = CANON["reps"] * len(CANON["s"])
+
+    mfcd_tpu_torch.parameter_scan(**dict(CANON, num_epochs=2))
+    s_per_run, walls = timed("parameter_scan", runs,
+                             lambda: mfcd_tpu_torch.parameter_scan(**CANON))
+    out = {"card": smi, "s_per_run": s_per_run, "walls_s": walls}
+    out.update(profiled("parameter_scan",
+                        lambda: mfcd_tpu_torch.parameter_scan(**CANON)))
+
+    grid = dict(CANON, s=[5.0, 6.0])
+    fast_call = lambda: mfcd_tpu_torch.parameter_scan_fast(**grid)
+    fast_s, fast_walls = timed("parameter_scan_fast",
+                               grid["reps"] * len(grid["s"]), fast_call)
+    out["fast"] = {"s_per_run": fast_s, "walls_s": fast_walls,
+                   **profiled("parameter_scan_fast", fast_call)}
     print(smi)
-    print(json.dumps({
-        "card": smi, "s_per_run": s_per_run, "walls_s": walls,
-        "profiled_wall_ms": wall * 1e3, "device_kernel_ms": device_ms,
-        "kernel_launches": launches,
-        "busy_share": device_ms / (wall * 1e3),
-        "spans_host_ms": spans,
-        "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in kernels[:8]],
-    }), flush=True)
+    print(json.dumps(out), flush=True)
     return 0
 
 

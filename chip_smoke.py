@@ -9,10 +9,23 @@ Phases, each of which raises on failure (nothing is caught and continued):
 3. kernels: the fused-epoch kernel against its plain PyTorch version on the
    card, at the canonical shape (n = m = 1000, d = 2, bs = 64, 2048 padded
    batches, R = 4, pack "full") and at a small shape in all three pack
-   modes; then its time per epoch, the plain version's, and the bound;
+   modes; then its time per epoch (the card's queue kept full), the plain
+   version's, and the bound;
+3b. kernel split: the five stage variants of the epoch (P1: loss, state
+   and the ``alive`` sums that show each kept stage's work) and the
+   factored-layout epoch (P2) against their plain versions at the
+   profiler's shape (R = 8, n = m = 1000, d = 2, bs = 64, 1,250 batches,
+   pack "full"), P2 against the fused epoch, then the profiler's path
+   (``mfcd_tpu_torch.scripts.profile_kernel_split.profile``) with the
+   launch counts read around it: each kernel's time, K1's beside
+   ``full``'s, the per-step stage split, the plain versions' times and the
+   bounds;
 4. main path: ``parameter_scan`` at the canonical configuration
    (n = m = 1000, d = 2, p = 0.2, s = 5, 30 epochs, reps = 4) on the card,
    with the kernel launch count read around it;
+4b. fast path: ``parameter_scan_fast`` on the bench bucket (s = 5 and 6:
+   one chunk of 8 runs), launches read around it, against the sequential
+   ``parameter_scan`` on the same grid;
 5. card vs CPU: the same configuration at 2 epochs, reps = 1, on both.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
@@ -26,7 +39,6 @@ import json
 import math
 import os
 import pickle
-import subprocess
 import sys
 import tempfile
 import time
@@ -61,14 +73,6 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def make_epoch_inputs(seed, r, n, m, d, bs, num_batches, counts, lrs, mode,
@@ -122,21 +126,41 @@ def clone_state(state):
     return type(state)(*(a.clone() for a in state))
 
 
-def compare_epoch(inp, label):
-    """Kernel vs plain version on the same inputs; returns max |diff|."""
+def compare_epoch(inp, label, kernel=None, plain=None, state=None):
+    """Kernel vs plain version on the same inputs (default: the fused epoch
+    on ``inp["state"]``), every output per tensor; returns (max |diff|, the
+    plain call's ms, the kernel's outputs ``(state, loss[, alive])``)."""
     from mfcd_tpu_torch.ops import kernels
 
+    kernel = kernel or kernels.train_epoch
+    plain = plain or kernels.train_epoch_reference
+    state = inp["state"] if state is None else state
     args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"], inp["count"])
-    ref_state, ref_loss = kernels.train_epoch_reference(
-        clone_state(inp["state"]), *args, pack=inp["pack"])
-    got_state, got_loss = kernels.train_epoch(
-        clone_state(inp["state"]), *args, pack=inp["pack"])
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(clone_state(state), *args, pack=inp["pack"])
+    stop.record()
+    got = kernel(clone_state(state), *args, pack=inp["pack"])
     torch.cuda.synchronize()
+    worst = check_close(want, got, label)
+    return worst, start.elapsed_time(stop), got
+
+
+def check_close(want, got, label):
+    """Per tensor (the six state tensors, the loss, and ``alive`` where the
+    call returns it): max |diff| <= KERNEL_RTOL * max|ref| + KERNEL_ATOL;
+    returns the largest max |diff|."""
+    from mfcd_tpu_torch.ops.kernels import EpochState
+
+    names = EpochState._fields + ("loss", "alive")
+    want = tuple(want[0]) + tuple(want[1:])
+    got = tuple(got[0]) + tuple(got[1:])
+    if len(want) != len(got):
+        fail(f"{label}: {len(got)} outputs, expected {len(want)}")
     worst = 0.0
     errs = []
-    for name, a, b in zip(("loss",) + kernels.EpochState._fields,
-                          (ref_loss,) + tuple(ref_state),
-                          (got_loss,) + tuple(got_state)):
+    for name, a, b in zip(names, want, got):
         if not torch.isfinite(b).all():
             fail(f"{label}: non-finite {name} from the kernel")
         err = float((a - b).abs().max())
@@ -146,14 +170,16 @@ def compare_epoch(inp, label):
         if err > KERNEL_RTOL * scale + KERNEL_ATOL:
             fail(f"{label}: {name} max|diff| {err:.3g} > {KERNEL_RTOL} x "
                  f"max|ref| {scale:.3g} + {KERNEL_ATOL}")
-    log(f"  {label}: kernel vs plain max|diff|/max|ref| "
-        + ", ".join(errs)
+    log(f"  {label}: max|diff|/max|ref| " + ", ".join(errs)
         + f" (bound {KERNEL_RTOL} x max|ref| + {KERNEL_ATOL} per tensor)")
     return worst
 
 
 def time_ms(fn, warmup: int, reps: int) -> float:
-    """Median of per-call CUDA-event times, after ``warmup`` calls."""
+    """Median of per-call CUDA-event times, after ``warmup`` calls, the card
+    idle before each: for the plain versions, whose host time is part of
+    their cost (the kernels are timed by ``profile_kernel_split.median_ms``
+    with the queue kept full)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -169,6 +195,21 @@ def time_ms(fn, warmup: int, reps: int) -> float:
     return float(np.median(times))
 
 
+def bound_ms(nbytes: float, flops: float):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    H100's memory rate and the operations over its float32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def executed_steps(inp, bs) -> int:
+    count = inp["count"].cpu().numpy().astype(np.int64)
+    return int(np.minimum((count + bs - 1) // bs,
+                          inp["stream"][0].shape[1]).sum())
+
+
 def epoch_bound_ms(inp, n, m, d, bs):
     """Least time for one call on these inputs, from the H100 peaks.
 
@@ -176,18 +217,48 @@ def epoch_bound_ms(inp, n, m, d, bs):
     words read once, the per-run scalars and the loss.  Operations: per
     executed step, bs * (9d + 15) for the rows (forward, BCE, g, scatter)
     plus 16 per element of the dense Adam over (n + m) * d elements."""
-    count = inp["count"].cpu().numpy().astype(np.int64)
-    steps = int(np.minimum((count + bs - 1) // bs,
-                           inp["stream"][0].shape[1]).sum())
-    r = len(count)
+    steps = executed_steps(inp, bs)
+    r = inp["count"].numel()
     state_bytes = sum(a.numel() * 4 for a in inp["state"])
     stream_bytes = steps * bs * sum(a.element_size() for a in inp["stream"])
     nbytes = 2 * state_bytes + stream_bytes + r * 4 * 5
     flops = steps * (bs * (9 * d + 15) + 16 * (n + m) * d + 6)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return bound_ms(nbytes, flops)
+
+
+def variant_bound_ms(inp, name, n, m, d, bs):
+    """``epoch_bound_ms`` restricted to the stages a P1 variant keeps, plus
+    its keep-alive terms.  Per executed step: contract bs * (4d + 15)
+    (gathers, logits, BCE, g, loss) and scatter bs * 5d, which together
+    are the fused epoch's bs * (9d + 15); Adam 16 * (n + m) * d + 6; the
+    keep-alive terms 5 * bs (loop_only: z * mask and four sums), 9 * bs
+    (oh_only: three masked planes and their sums), 2 * bs (no_scatter: sum
+    g and sum |g|) and 9d * bs (no_adam: the sum of its 3 * bs * d
+    contributions, and |.| and the sum of the 3 * bs * d values read
+    back).  Bytes: the stream words, scalars, loss
+    and alive; U and V read once from no_scatter on; the whole state read
+    and written once by full."""
+    if name == "full":
+        return epoch_bound_ms(inp, n, m, d, bs)
+    steps = executed_steps(inp, bs)
+    r = inp["count"].numel()
+    nbytes = steps * bs * 4 + r * 4 * 6
+    per_step = {"loop_only": 5 * bs, "oh_only": 9 * bs,
+                "no_scatter": bs * (4 * d + 15) + 2 * bs,
+                "no_adam": bs * (9 * d + 15) + 9 * d * bs}[name]
+    if name in ("no_scatter", "no_adam"):
+        nbytes += r * (n + m) * d * 4
+    return bound_ms(nbytes, steps * per_step)
+
+
+def factored_bound_ms(inp, d, bs, rows=1024):
+    """``epoch_bound_ms`` over P2's tables of ``rows`` rows each, plus the
+    add of V's i- and j-sums per element of V."""
+    steps = executed_steps(inp, bs)
+    r = inp["count"].numel()
+    nbytes = 2 * 6 * r * rows * d * 4 + steps * bs * 4 + r * 4 * 5
+    flops = steps * (bs * (9 * d + 15) + 16 * 2 * rows * d + rows * d + 6)
+    return bound_ms(nbytes, flops)
 
 
 def all_finite(results) -> bool:
@@ -221,18 +292,167 @@ def compare_results(a, b, label):
     return worst
 
 
+def kernel_split_phase(dev, n, m, d, bs):
+    """[3b] P1's variants and P2 against their plain versions at the
+    profiler's shape, P2 against the fused epoch, then the profiler's path
+    with its launch counts; returns the ``kernels`` entries."""
+    import functools
+
+    from mfcd_tpu_torch.ops import kernel_split as ks
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.scripts import profile_kernel_split as pks
+
+    nb = -(-pks.ROWS // bs)
+    inp = make_epoch_inputs(3, pks.R, n, m, d, bs, nb, [pks.ROWS] * pks.R,
+                            [1e-3, 3e-3] * (pks.R // 2), "full", dev)
+    errs, plain = {}, {}
+    for name, stages in ks.VARIANTS.items():
+        errs[name], plain[name], _ = compare_epoch(
+            inp, f"P1 {name} R={pks.R}",
+            kernel=functools.partial(ks.train_epoch_variant, stages=stages),
+            plain=functools.partial(ks.train_epoch_variant_reference,
+                                    stages=stages))
+    state_f = type(inp["state"])(*(ks.to_factored_layout(a)
+                                   for a in inp["state"]))
+    errs["factored"], plain["factored"], (fac_state, fac_loss) = (
+        compare_epoch(inp, f"P2 factored R={pks.R}",
+                      kernel=ks.train_epoch_factored,
+                      plain=ks.train_epoch_factored_reference, state=state_f))
+    k1 = kernels.train_epoch(clone_state(inp["state"]), inp["stream"],
+                             inp["lr"], inp["wd"], inp["step0"],
+                             inp["count"], pack=inp["pack"])
+    torch.cuda.synchronize()
+    check_close(k1, (tuple(ks.from_factored_layout(a, d, k) for a, k in
+                           zip(fac_state, (n, m, n, n, m, m))), fac_loss),
+                f"P2 vs fused epoch R={pks.R}")
+
+    # The profiler's own path, as `python3 -m
+    # mfcd_tpu_torch.scripts.profile_kernel_split` runs it.
+    prof_inp = pks.canonical_inputs(dev)
+    torch.cuda.synchronize()
+    for name in ks.VARIANT_LAUNCHES:
+        ks.VARIANT_LAUNCHES[name] = 0
+    ks.FACTORED_LAUNCHES = 0
+    prof = pks.profile(prof_inp)
+    torch.cuda.synchronize()
+    launches = dict(ks.VARIANT_LAUNCHES, factored=ks.FACTORED_LAUNCHES)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the profiler launched {name} no time")
+    if not prof["variants"]["full_factored"]["allclose_vs_full"]:
+        fail("profiler: P2's final U is not allclose to full's")
+    v = prof["variants"]
+    log(f"[3b] kernel split R={pks.R}, {nb} steps: "
+        + ", ".join(f"{k} {v[k]['ms_per_epoch']:.4f} ms "
+                    f"({v[k]['us_per_step']:.4f} us/step)" for k in v)
+        + "; stage deltas us/step: "
+        + ", ".join(f"{k} {x:.4f}" for k, x in
+                    prof["stage_deltas_us"].items())
+        + f"; P2 max|U - full U| "
+        f"{v['full_factored']['max_delta_vs_full']:.3g}; K1 "
+        f"{prof['k1']['ms_per_epoch']:.4f} ms "
+        f"({prof['k1']['us_per_step']:.4f} us/step), full - K1 "
+        f"{prof['k1']['full_minus_k1_us_per_step']:.4f} us/step")
+
+    entries = []
+    for name in ks.VARIANTS:
+        b, by = variant_bound_ms(prof_inp, name, n, m, d, bs)
+        entries.append(dict(
+            name=f"epoch_variant:{name}", route="cuda",
+            source="mfcd_tpu_torch/ops/csrc/epoch_variants.cu",
+            replaces="scripts/profile_kernel_split.py:64",
+            launches=launches[name], max_abs_err=errs[name],
+            ms=v[name]["ms_per_epoch"], plain_ms=plain[name], bound_ms=b,
+            bound_by=by, library_ms=None))
+        log(f"  P1 {name}: plain {plain[name]:.2f} ms, bound {b:.6f} ms "
+            f"({by}), {launches[name]} launches")
+    b, by = factored_bound_ms(prof_inp, d, bs)
+    entries.append(dict(
+        name="epoch_factored", route="cuda",
+        source="mfcd_tpu_torch/ops/csrc/epoch_variants.cu",
+        replaces="scripts/profile_kernel_split.py:329",
+        launches=launches["factored"], max_abs_err=errs["factored"],
+        ms=v["full_factored"]["ms_per_epoch"], plain_ms=plain["factored"],
+        bound_ms=b, bound_by=by, library_ms=None))
+    log(f"  P2 factored: plain {plain['factored']:.2f} ms, bound {b:.6f} ms "
+        f"({by}), {launches['factored']} launches")
+    return entries
+
+
+def fast_path_phase():
+    """[4b] ``parameter_scan_fast`` on the bench bucket against the
+    sequential scan of the same grid."""
+    import mfcd_tpu_torch
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.core.results import validate_schema
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.sweep import batched
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    grid = dict(CANON, s=[5.0, 6.0])
+    runs = grid["reps"] * len(grid["s"])
+    with tempfile.TemporaryDirectory(prefix="mfcd_chip_smoke_") as tmp:
+        save_path = os.path.join(tmp, "fast.pkl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.EPOCH_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = mfcd_tpu_torch.parameter_scan_fast(save_path=save_path,
+                                                 **grid)
+        torch.cuda.synchronize()
+        wall_fast = time.perf_counter() - t0
+        launches = kernels.EPOCH_LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        with open(save_path, "rb") as f:
+            saved = pickle.load(f)
+    if launches != grid["num_epochs"]:
+        fail(f"fast path launched the epoch kernel {launches} times, "
+             f"expected {grid['num_epochs']} (one chunk of {runs} runs)")
+    if out != [] or [e["params"]["s"] for e in saved] != grid["s"]:
+        fail("fast path pickle protocol: expected both configs, in order")
+    for e in saved:
+        problems = validate_schema(e["results"])
+        if problems:
+            fail(f"fast path schema: {problems}")
+        if not all_finite(e["results"]):
+            fail("fast path: non-finite values in the results")
+    t0 = time.perf_counter()
+    seq = mfcd_tpu_torch.parameter_scan(**grid)
+    torch.cuda.synchronize()
+    wall_seq = time.perf_counter() - t0
+    worst = {}
+    for a, b in zip(seq, saved):
+        for k, x in compare_results(a["results"], b["results"],
+                                    "fast vs sequential").items():
+            worst[k] = max(worst.get(k, 0.0), x)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    cfg = RunConfig(**{k: (v[0] if isinstance(v, list) else v)
+                       for k, v in grid.items()})
+    est = batched.run_bytes(cfg, t_cap=compile_caps(cfg)[0])
+    log(f"[4b] fast path: parameter_scan_fast, {runs} runs in "
+        f"{wall_fast:.3f} s ({wall_fast / runs:.4f} s/run), {launches} "
+        f"kernel launches; sequential parameter_scan {wall_seq:.3f} s "
+        f"({wall_seq / runs:.4f} s/run); 23 keys within rtol "
+        f"{CARD_CPU_RTOL}, atol {CARD_CPU_ATOL}, largest |diff| "
+        + ", ".join(f"{k} {x:.3g}" for k, x in top)
+        + f"; peak device memory {peak / runs / 1e6:.1f} MB/run, "
+        f"estimated {est / 1e6:.1f} MB/run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import mfcd_tpu_torch
+    from mfcd_tpu_torch.backend import card_line
     from mfcd_tpu_torch.core.results import validate_schema
     from mfcd_tpu_torch.ops import _build, kernels
+    from mfcd_tpu_torch.scripts.profile_kernel_split import median_ms
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = smi_line()
+    smi = card_line()
     log(f"[1] device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
@@ -250,26 +470,26 @@ def main() -> int:
     canon = make_epoch_inputs(1, 4, n, m, d, bs, nb,
                               [80000, 80000, 80000, 51234],
                               [1e-3, 3e-3, 1e-3, 1e-2], "full", dev)
-    max_err = compare_epoch(canon, "canonical R=4 full")
+    max_err = compare_epoch(canon, "canonical R=4 full")[0]
     for mode in ("full", "uij", "none"):
         small = make_epoch_inputs(2, 2, 20, 25, 3, 32, 4, [70, 100],
                                   [1e-2, 3e-2], mode, dev)
-        max_err = max(max_err, compare_epoch(small, f"small {mode}"))
+        max_err = max(max_err, compare_epoch(small, f"small {mode}")[0])
 
     args = (canon["stream"], canon["lr"], canon["wd"], canon["step0"],
             canon["count"])
-    timed = clone_state(canon["state"])
-    kernel_ms = time_ms(
-        lambda: kernels.train_epoch(timed, *args, pack=canon["pack"]),
-        warmup=2, reps=7)
+    kernel_ms = median_ms(
+        lambda st: kernels.train_epoch(st, *args, pack=canon["pack"]),
+        canon["state"], warmup=2, reps=7)
     plain_ms = time_ms(
         lambda: kernels.train_epoch_reference(canon["state"], *args,
                                               pack=canon["pack"]),
         warmup=1, reps=3)
-    bound_ms, bound_by = epoch_bound_ms(canon, n, m, d, bs)
+    k1_bound, k1_by = epoch_bound_ms(canon, n, m, d, bs)
     log(f"[3] epoch R=4 canonical: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        f"{plain_ms:.2f} ms, bound {k1_bound:.6f} ms ({k1_by})")
 
+    split_entries = kernel_split_phase(dev, n, m, d, bs)
     # [4] The main path at full width, launches counted around it.
     with tempfile.TemporaryDirectory(prefix="mfcd_chip_smoke_") as tmp:
         save_path = os.path.join(tmp, "scan.pkl")
@@ -304,6 +524,8 @@ def main() -> int:
         f"{float(np.mean(res['gt_accuracy'])):.4f}, final train loss "
         f"{float(np.mean([c[-1] for c in res['train_losses']])):.4f}")
 
+    fast_path_phase()
+
     # [5] Card vs CPU at the same shape, 2 epochs.
     short = dict(CANON, num_epochs=2, reps=1)
     t0 = time.perf_counter()
@@ -330,10 +552,10 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
         "library_ms": None,
-    }]}), flush=True)
+    }] + split_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

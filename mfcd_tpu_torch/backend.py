@@ -12,6 +12,8 @@ there is none raises — nothing falls back to the CPU silently.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -31,6 +33,16 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device: {dev}")
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 pin_precision()

@@ -95,3 +95,24 @@ def load(name: str) -> ctypes.CDLL:
             _libs[name] = ctypes.CDLL(_finish(_start(os.path.join(CSRC,
                                                                   name))))
         return _libs[name]
+
+
+def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>``, with its entry ``fn`` typed
+    (``argtypes``, returning a CUDA error code) and its
+    ``mfcd_cuda_error_string``."""
+    lib = load(name)
+    entry = getattr(lib, fn)
+    if entry.argtypes is None:
+        entry.argtypes = argtypes
+        entry.restype = ctypes.c_int
+        lib.mfcd_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mfcd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.mfcd_cuda_error_string(err).decode())

@@ -29,6 +29,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from mfcd_tpu_torch.models.mf import gather_rows
+from mfcd_tpu_torch.ops import _build
 
 EPOCH_LAUNCHES = 0          # kernel launches by train_epoch, nowhere else
 SMEM_PER_BLOCK = 232_448    # bytes of shared memory one Hopper block may use
@@ -88,6 +89,39 @@ def _rows_first(a: torch.Tensor) -> torch.Tensor:
     return a.transpose(1, 2).contiguous()
 
 
+def _forward(p_u, p_v, u, i, j, z, mask):
+    """One batch's forward over rows-first tables ``[R, rows, d]``:
+    returns (eu, dv ``[R, bs, d]``, masked-mean BCE ``[R]``, g ``[R, bs]``)."""
+    eu = gather_rows(p_u, u)
+    dv = gather_rows(p_v, i) - gather_rows(p_v, j)
+    logits = torch.sum(eu * dv, dim=-1)
+    bce = (torch.clamp(logits, min=0.0) - logits * z
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    inv_cnt = 1.0 / torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    loss = torch.sum(bce * mask, dim=-1) * inv_cnt
+    g = (torch.sigmoid(logits) - z) * mask * inv_cnt.unsqueeze(-1)
+    return eu, dv, loss, g
+
+
+def _index_add(rows: int, idx: torch.Tensor, vals: torch.Tensor):
+    """Sum ``vals [R, E, d]`` into a zero ``[R, rows, d]`` at row ``idx
+    [R, E]``, each row's entries in entry order (a sequential index_add_)."""
+    r, _, d = vals.shape
+    runs = torch.arange(r, device=vals.device).unsqueeze(-1)
+    return torch.zeros(r * rows, d, device=vals.device).index_add_(
+        0, (runs * rows + idx).reshape(-1).to(torch.int64),
+        vals.reshape(-1, d)).reshape(r, rows, d)
+
+
+def _v_grad_interleaved(m: int, i, j, g_v_rows):
+    """V's gradient with entries in batch order i_0, j_0, i_1, j_1, ...
+    (+g*eu, -g*eu), as the fused-epoch kernel sums them."""
+    r = i.shape[0]
+    return _index_add(m, torch.stack([i, j], dim=-1).reshape(r, -1),
+                      torch.stack([g_v_rows, -g_v_rows], dim=-2).reshape(
+                          r, -1, g_v_rows.shape[-1]))
+
+
 def train_epoch_reference(state: EpochState, stream, lr, wd, step0, count,
                           pack: tuple = ("none", 0, 0, 0, 1), b1: float = 0.9,
                           b2: float = 0.999, eps: float = 1e-8):
@@ -95,6 +129,14 @@ def train_epoch_reference(state: EpochState, stream, lr, wd, step0, count,
 
     Same arguments as :func:`train_epoch`.  Runs step together; a run past
     its own ``ceil(count / bs)`` batches keeps its state."""
+    return _epoch_reference(state, stream, lr, wd, step0, count, pack, b1,
+                            b2, eps, _v_grad_interleaved)
+
+
+def _epoch_reference(state, stream, lr, wd, step0, count, pack, b1, b2, eps,
+                     v_grad):
+    """:func:`train_epoch_reference` with V's gradient summed by
+    ``v_grad(m, i, j, g_v_rows)``."""
     b1f, omb1, b2f, omb2, log_b1, log_b2 = _adam_consts(b1, b2)
     r, d, n = state.u_t.shape
     m = state.v_t.shape[2]
@@ -108,7 +150,6 @@ def train_epoch_reference(state: EpochState, stream, lr, wd, step0, count,
     num_exec = (count + bs - 1) // bs
     steps = torch.clamp(num_exec, max=num_batches)
     slot_iota = torch.arange(bs, device=dev)
-    runs = torch.arange(r, device=dev).unsqueeze(-1)
     col = lambda v: v.reshape(r, 1, 1)
 
     def adam(p, mu, nu, grad, bc1, bc2, active):
@@ -125,26 +166,9 @@ def train_epoch_reference(state: EpochState, stream, lr, wd, step0, count,
         active = t < steps
         u, i, j, z = _unpack(stream, t, pack)
         mask = ((t * bs + slot_iota) < count.unsqueeze(-1)).to(torch.float32)
-        eu = gather_rows(p_u, u)
-        dv = gather_rows(p_v, i) - gather_rows(p_v, j)
-        logits = torch.sum(eu * dv, dim=-1)
-        bce = (torch.clamp(logits, min=0.0) - logits * z
-               + torch.log1p(torch.exp(-torch.abs(logits))))
-        inv_cnt = 1.0 / torch.clamp(torch.sum(mask, dim=-1), min=1.0)
-        loss = torch.sum(bce * mask, dim=-1) * inv_cnt
-        g = (torch.sigmoid(logits) - z) * mask * inv_cnt.unsqueeze(-1)
-
-        g_u_rows = g.unsqueeze(-1) * dv                       # [R, bs, d]
-        grad_u = torch.zeros(r * n, d, device=dev).index_add_(
-            0, (runs * n + u).reshape(-1).to(torch.int64),
-            g_u_rows.reshape(-1, d)).reshape(r, n, d)
-        g_v_rows = g.unsqueeze(-1) * eu
-        # Entries in batch order i_0, j_0, i_1, j_1, ... (+g*eu, -g*eu).
-        idx_v = torch.stack([runs * m + i, runs * m + j], dim=-1)
-        val_v = torch.stack([g_v_rows, -g_v_rows], dim=-2)
-        grad_v = torch.zeros(r * m, d, device=dev).index_add_(
-            0, idx_v.reshape(-1).to(torch.int64),
-            val_v.reshape(-1, d)).reshape(r, m, d)
+        eu, dv, loss, g = _forward(p_u, p_v, u, i, j, z, mask)
+        grad_u = _index_add(n, u, g.unsqueeze(-1) * dv)
+        grad_v = v_grad(m, i, j, g.unsqueeze(-1) * eu)
 
         t_step = step0 + float(t + 1)
         bc1 = 1.0 - torch.exp(t_step * log_b1)
@@ -179,15 +203,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11
 
 
 def _library():
-    from mfcd_tpu_torch.ops import _build
-
-    lib = _build.load("epoch_kernel.cu")
-    if lib.mfcd_train_epoch.argtypes is None:
-        lib.mfcd_train_epoch.argtypes = _ARGTYPES
-        lib.mfcd_train_epoch.restype = ctypes.c_int
-        lib.mfcd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mfcd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.bind("epoch_kernel.cu", "mfcd_train_epoch", _ARGTYPES)
 
 
 def train_epoch(state: EpochState, stream, lr, wd, step0, count,
@@ -251,8 +267,6 @@ def train_epoch(state: EpochState, stream, lr, wd, step0, count,
         loss.data_ptr(), r, n, m, d, num_batches, bs, _MODES[mode], bits_n,
         bits_m, bits_z, denom, b1f, omb1, b2f, omb2, float(eps), log_b1,
         log_b2, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("epoch kernel launch failed: "
-                           + lib.mfcd_cuda_error_string(err).decode())
+    _build.raise_on(lib, err, "epoch kernel")
     EPOCH_LAUNCHES += 1
     return state, loss

@@ -1,0 +1,242 @@
+"""Batched sweep execution — ``run_bucket`` / ``parameter_scan_fast``.
+
+Counterpart of ``mfcd_tpu/sweep/batched.py``.  Where ``parameter_scan``
+runs one configuration at a time, this module runs a whole *shape bucket*
+of configurations (``bucket_by_shape``) together: their configs x reps runs
+share one ``_run_bucket_device`` call, so each training epoch is one
+fused-epoch kernel launch over all of them (one thread block per run).
+Per-run values (s, lr, weight_decay, the exact triplet budget) vary inside
+a bucket; only shape-changing parameters split buckets.  Run keys are
+folded from the global config index, so results do not depend on how the
+grid was bucketed or chunked.
+
+Not ported, with the reasons in ``ROADMAP.md``: the device ``mesh`` (one
+card), the TPU-transport retries and compile-cache purge, and
+``MFCD_PIPELINE`` (the overlap of one chunk's export with the next one's
+dispatch, with its ``run_bucket_async`` / ``BucketFuture`` split).  The
+phases are ``torch.profiler`` spans: ``mfcd.sweep.dispatch``,
+``mfcd.sweep.collect``, ``mfcd.sweep.export``, ``mfcd.sweep.persist``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from mfcd_tpu_torch.backend import resolve_device
+from mfcd_tpu_torch.core import prng, rng
+from mfcd_tpu_torch.core.config import (TRAIN_RATIO, RunConfig, SweepSpec,
+                                        _next_pow2, bucket_by_shape)
+from mfcd_tpu_torch.core.results import export_results
+from mfcd_tpu_torch.sweep.engine import (DEFAULT_SEED, _run_bucket_device,
+                                         compile_caps, default_use_kernel)
+from mfcd_tpu_torch.utils.io import (append_results, completed_param_sets,
+                                     reset_save_path)
+
+# Per-run device bytes of a bucket, by what the port allocates (see
+# ``default_max_bucket``).
+_NM_PLANES = 12          # live n x m float32-sized planes at the metrics peak
+_TRAIN_ROW_BYTES = 85    # split 17 + packed stream 4 + 8 int64 shuffle temps
+_EVAL_ROW_BYTES = 17     # u, i, j int32 + label float32 + valid bool
+_SAMPLE_SLOT_BYTES = 64  # 8 int64 sampler temporaries per triplet slot
+CPU_BUDGET_BYTES = 2e9   # the JAX package's working budget, for the CPU
+
+
+def run_bucket(
+    cfg: RunConfig,
+    hyper_rows: Sequence[Dict[str, float]],
+    config_indices: Sequence[int],
+    seed: int = DEFAULT_SEED,
+    caps=None,
+    bucket_configs: Optional[Sequence[RunConfig]] = None,
+    device=None,
+) -> List[Dict[str, Any]]:
+    """Run a same-shape bucket of configurations on ``device``; returns one
+    reference results dict per configuration, in bucket order.
+
+    ``hyper_rows`` carries ``{'s', 'lr', 'weight_decay'}`` per
+    configuration and ``config_indices`` their global experiment indices
+    (the keys are folded from them).  With ``caps`` (a ``(t_cap,
+    extra_cap)`` capacity bucket) and ``bucket_configs`` (the per-row
+    RunConfigs), configurations differing only in sparsity share the
+    bucket, each with its exact triplet budget.  The JAX package's
+    ``run_bucket_async`` / ``BucketFuture`` split returns with a caller
+    that overlaps chunks (``MFCD_PIPELINE``, not ported)."""
+    device = resolve_device(device)
+    b = len(hyper_rows)
+    idx = torch.as_tensor(np.asarray(config_indices, np.int64), device=device)
+    cfg_keys = rng.config_key(prng.key(seed, device=device)[None], idx)
+    column = lambda key: np.asarray([r[key] for r in hyper_rows], np.float32)
+    shs = ([c.shapes() for c in bucket_configs] if bucket_configs is not None
+           else [cfg.shapes()] * b)
+    targets = [sh.num_triplets for sh in shs]
+    with record_function("mfcd.sweep.dispatch"):
+        out = _run_bucket_device(
+            dataclasses.replace(cfg, s=0.0, lr=0.0, weight_decay=0.0),
+            cfg_keys, column("s"), column("lr"), column("weight_decay"),
+            use_kernel=default_use_kernel(cfg, device), caps=caps,
+            budgets=np.asarray(targets, np.int32),
+            extra_budgets=np.asarray([sh.extra_test_triplets for sh in shs],
+                                     np.int32))
+    with record_function("mfcd.sweep.collect"):
+        host = {k: v.cpu() for k, v in out.items()}
+    with record_function("mfcd.sweep.export"):
+        results = []
+        for bi in range(b):
+            per_cfg = {k: v[bi] for k, v in host.items()}
+            for c in per_cfg.pop("sample_count").numpy():
+                if int(c) < targets[bi]:
+                    print(f"⚠️ Only {int(c)} triplets generated for "
+                          f"strategy: {cfg.strategy} (target={targets[bi]})",
+                          file=sys.stderr)
+            results.append(export_results(per_cfg))
+        return results
+
+
+def memory_budget_bytes(device) -> float:
+    """Device bytes one chunk may plan for: a quarter of the card's memory,
+    leaving room for the allocator's slack and the transient peaks the
+    per-run count leaves out; the JAX package's 2 GB on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 4
+    return CPU_BUDGET_BYTES
+
+
+def run_bytes(cfg: RunConfig, t_cap: Optional[int] = None) -> int:
+    """Estimated device bytes of one run of ``cfg`` at capacity ``t_cap``.
+
+    The port allocates, per run: the n x m planes of the generator and the
+    metric block (X, U V^T, centred copies, sort indices and ranks);
+    the training split, its packed stream and the epoch shuffle's int64
+    temporaries per padded row; the validation and test splits; and the
+    prefix sampler's int64 temporaries per triplet slot.  The prefix
+    sampler is the only one ported, so there is no overdraw term."""
+    sh = cfg.shapes()
+    t = sh.num_triplets if t_cap is None else t_cap
+    train_rows = int(TRAIN_RATIO * t) * (1 if cfg.soft_label else cfg.K)
+    eval_raw = ((t - int(TRAIN_RATIO * t)) * cfg.K
+                + sh.extra_test_triplets * cfg.K)
+    return (cfg.n * cfg.m * 4 * _NM_PLANES
+            + _next_pow2(max(train_rows, 1)) * _TRAIN_ROW_BYTES
+            + _next_pow2(max(eval_raw, 1)) * _EVAL_ROW_BYTES
+            + t * _SAMPLE_SLOT_BYTES)
+
+
+_logged_max_bucket: Optional[tuple] = None
+
+
+def default_max_bucket(cfg: RunConfig, t_cap: Optional[int] = None,
+                       device=None) -> int:
+    """Configurations per chunk: the memory budget over the per-run bytes
+    (at least 4 runs), divided by the repetitions per configuration, as in
+    the JAX package.  Printed once per process and choice."""
+    global _logged_max_bucket
+    device = resolve_device(device)
+    per_run = run_bytes(cfg, t_cap)
+    budget_runs = max(4, int(memory_budget_bytes(device) / per_run))
+    chunk = max(1, budget_runs // max(cfg.reps, 1))
+    choice = (device.type, per_run, chunk)
+    if _logged_max_bucket != choice:
+        _logged_max_bucket = choice
+        print(f"mfcd_tpu_torch: up to {chunk} configs x {cfg.reps} reps per "
+              f"chunk on {device.type} ({per_run / 1e6:.1f} MB per run "
+              f"estimated)", flush=True)
+    return chunk
+
+
+def parameter_scan_fast(
+    device=None,
+    save_path: Optional[str] = None,
+    save_every: Optional[int] = None,
+    linear: bool = False,
+    seed: int = DEFAULT_SEED,
+    batch_size: int = 64,
+    max_bucket: Optional[int] = None,
+    resume: bool = False,
+    pad_compiles: bool = True,
+    **params,
+) -> List[Dict[str, Any]]:
+    """``parameter_scan`` over shape buckets, with the same semantics and
+    schema.
+
+    Groups the expanded grid into shape buckets, runs each bucket in chunks
+    of up to ``max_bucket`` configurations (default
+    :func:`default_max_bucket`), and returns the results in grid order.
+    Every finished chunk is appended to ``save_path`` at once, and a scan
+    that saves returns ``[]``.  ``save_every`` is accepted for
+    compatibility with the JAX package's and the sequential scan's
+    signature, and ignored.  ``resume=True`` keeps an existing results file and
+    skips configurations already in it.  A chunk that runs out of device
+    memory is split in two and retried, down to single configurations.
+    ``device=None`` means the card."""
+    device = resolve_device(device)
+    spec = SweepSpec(params=params, linear=linear, batch_size=batch_size)
+    param_sets = spec.expand()
+    configs = [RunConfig(batch_size=batch_size, **ps) for ps in param_sets]
+    buckets = bucket_by_shape(configs, capped=pad_compiles)
+
+    done: List[Dict[str, Any]] = []
+    if save_path:
+        if resume:
+            done = completed_param_sets(save_path)
+            if done:
+                print(f"🔁 Resuming: {len(done)} experiments already in "
+                      f"{save_path}")
+        else:
+            reset_save_path(save_path)
+
+    slot_results: List[Optional[Dict]] = [None] * len(configs)
+    for indices in buckets.values():
+        indices = [i for i in indices if param_sets[i] not in done]
+        if not indices:
+            continue
+        rep_cfg = configs[indices[0]]
+        caps = compile_caps(rep_cfg) if pad_compiles else None
+        bucket_cap = (max_bucket if max_bucket is not None
+                      else default_max_bucket(
+                          rep_cfg, t_cap=caps[0] if caps else None,
+                          device=device))
+
+        def run_chunk(chunk):
+            try:
+                return run_bucket(
+                    rep_cfg,
+                    [{"s": configs[i].s, "lr": configs[i].lr,
+                      "weight_decay": configs[i].weight_decay}
+                     for i in chunk],
+                    chunk, seed=seed, caps=caps,
+                    bucket_configs=[configs[i] for i in chunk],
+                    device=device)
+            except torch.cuda.OutOfMemoryError:
+                # The per-run estimate is a model: halving converges on a
+                # chunk that fits.
+                if len(chunk) <= 1:
+                    raise
+                print(f"⚠️ device OOM on a {len(chunk)}-config chunk; "
+                      f"bisecting", file=sys.stderr)
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                mid = len(chunk) // 2
+                return run_chunk(chunk[:mid]) + run_chunk(chunk[mid:])
+
+        for lo in range(0, len(indices), bucket_cap):
+            chunk = indices[lo:lo + bucket_cap]
+            outs = run_chunk(chunk)
+            for i, res in zip(chunk, outs):
+                slot_results[i] = res
+            if save_path:
+                with record_function("mfcd.sweep.persist"):
+                    append_results(save_path, [
+                        {"params": param_sets[i], "results": res}
+                        for i, res in zip(chunk, outs)])
+
+    if save_path:
+        return []
+    return [{"params": ps, "results": res}
+            for ps, res in zip(param_sets, slot_results)]

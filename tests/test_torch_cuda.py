@@ -1,4 +1,5 @@
-"""The fused-epoch CUDA kernel vs its plain PyTorch version, on a card.
+"""The CUDA kernels vs their plain PyTorch versions, on a card: the fused
+epoch (K1), its five stage variants (P1) and the factored-layout epoch (P2).
 
 Imports neither jax nor ``mfcd_tpu``, so it runs on a machine with the card
 and without jax::
@@ -9,7 +10,8 @@ Without a card every test skips (the kernel has no CPU mode).  Bounds: the
 kernel rounds every multiply and add on its own, as the plain version
 does, and sums gradient rows in batch order; the plain version's
 ``index_add_`` on the card adds with atomics, and the loss reductions run
-in another order, so state and loss agree to rtol 1e-5 / atol 1e-6.
+in another order, so state, loss and the P1 variants' ``alive`` sums (the
+check of each kept stage's work) agree to rtol 1e-5 / atol 1e-6.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from mfcd_tpu_torch.convert import epoch_state_from_jax
+from mfcd_tpu_torch.ops import kernel_split as KS
 from mfcd_tpu_torch.ops import kernels as K
 from mfcd_tpu_torch.train import kernel_trainer as KT
 
@@ -56,15 +59,18 @@ def _inputs(seed, n, m, d, bs, nb, counts, lrs, mode, dev):
     return [a.astype(np.float32) for a in state], args, pack
 
 
-def _compare(state, args, pack, dev):
-    want = K.train_epoch_reference(epoch_state_from_jax(*state, device=dev),
-                                   *args, pack=pack)
-    before = K.EPOCH_LAUNCHES
-    got = K.train_epoch(epoch_state_from_jax(*state, device=dev), *args,
-                        pack=pack)
+def _compare(state, args, pack, dev, kernel=K.train_epoch,
+             plain=K.train_epoch_reference, launches=lambda: K.EPOCH_LAUNCHES,
+             layout=lambda a: a):
+    make = lambda: K.EpochState(*(layout(a) for a in
+                                  epoch_state_from_jax(*state, device=dev)))
+    want = plain(make(), *args, pack=pack)
+    before = launches()
+    got = kernel(make(), *args, pack=pack)
     torch.cuda.synchronize()
-    assert K.EPOCH_LAUNCHES == before + 1
-    for x, y in zip(want[0] + (want[1],), got[0] + (got[1],)):
+    assert launches() == before + 1
+    assert len(got) == len(want)
+    for x, y in zip(want[0] + tuple(want[1:]), got[0] + tuple(got[1:])):
         torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-6)
 
 
@@ -98,3 +104,57 @@ def test_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         K.train_epoch(st._replace(u_t=st.u_t.transpose(1, 2).contiguous()
                                   .transpose(1, 2)), *args, pack=pack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(KS.VARIANTS))
+@pytest.mark.parametrize("shape", ["small", "canonical"])
+def test_variant_kernel_matches_plain_version(name, shape):
+    dev = _card()
+    if shape == "small":
+        state, args, pack = _inputs(6, N, M, D, BS, B, [70, 100],
+                                    [1e-2, 3e-2], "full", dev)
+    else:
+        state, args, pack = _inputs(7, 1000, 1000, 2, 64, 64, [4096, 2500],
+                                    [1e-3, 1e-2], "full", dev)
+    stages = KS.VARIANTS[name]
+    _compare(state, args, pack, dev,
+             kernel=lambda *a, **k: KS.train_epoch_variant(*a, **k,
+                                                           stages=stages),
+             plain=lambda *a, **k: KS.train_epoch_variant_reference(
+                 *a, **k, stages=stages),
+             launches=lambda: KS.VARIANT_LAUNCHES[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "canonical"])
+def test_factored_kernel_matches_plain_version(shape):
+    dev = _card()
+    if shape == "small":
+        state, args, pack = _inputs(8, N, M, D, BS, B, [70, 100],
+                                    [1e-2, 3e-2], "full", dev)
+    else:
+        state, args, pack = _inputs(9, 1000, 1000, 2, 64, 64, [4096, 2500],
+                                    [1e-3, 1e-2], "full", dev)
+    _compare(state, args, pack, dev, kernel=KS.train_epoch_factored,
+             plain=KS.train_epoch_factored_reference,
+             launches=lambda: KS.FACTORED_LAUNCHES,
+             layout=KS.to_factored_layout)
+
+
+@pytest.mark.cuda
+def test_split_kernels_reject_what_they_do_not_take():
+    dev = _card()
+    state, args, pack = _inputs(10, N, M, D, BS, B, [70, 100], [1e-2, 3e-2],
+                                "uij", dev)
+    st = epoch_state_from_jax(*state, device=dev)
+    with pytest.raises(ValueError, match="only 'full'"):
+        KS.train_epoch_variant(st, *args, pack=pack, stages=())
+    state, args, pack = _inputs(10, N, M, D, BS, B, [70, 100], [1e-2, 3e-2],
+                                "full", dev)
+    st = epoch_state_from_jax(*state, device=dev)
+    with pytest.raises(TypeError):
+        KS.train_epoch_variant(st, args[0], args[1].double(), *args[2:],
+                               pack=pack, stages=())
+    with pytest.raises(ValueError, match="shape"):
+        KS.train_epoch_factored(st, *args, pack=pack)

@@ -184,10 +184,15 @@ def _imported_modules(path):
 
 
 def test_port_imports_neither_jax_nor_mfcd_tpu():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                             "chip_profile.py")]
     for root, _, names in os.walk(os.path.join(REPO, "mfcd_tpu_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     assert len(files) > 20
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"chip_profile.py", "mfcd_tpu_torch/ops/kernel_split.py",
+            "mfcd_tpu_torch/sweep/batched.py",
+            "mfcd_tpu_torch/scripts/profile_kernel_split.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
