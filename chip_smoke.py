@@ -6,11 +6,20 @@ Phases, each of which raises on failure (nothing is caught and continued):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every kernel source under mfcd_tpu_torch/ops/csrc, rebuilt;
-3. kernels: the fused-epoch kernel against its plain PyTorch version on the
-   card, at the canonical shape (n = m = 1000, d = 2, bs = 64, 2048 padded
-   batches, R = 4, pack "full") and at a small shape in all three pack
-   modes; then its time per epoch (the card's queue kept full), the plain
-   version's, and the bound;
+3. kernels: the fused-epoch kernel K1 against its plain PyTorch version on
+   the card, at the canonical shape (n = m = 1000, d = 2, bs = 64, 2048
+   padded batches, R = 4, pack "full"), at a small shape in all three pack
+   modes, at bs = 1024, on an adversarial stream (every row of a batch
+   names one row of U and alternates two rows of V), at the profiler's
+   R = 8, at R = 120 (``bench.py``'s sweep) and at the large R that
+   ``parameter_scan_fast`` chunks the reference grid into (the last two
+   over 64 batches); two launches bit-equal, and the chosen launch shape
+   bit-equal to one 512-thread block per run and to the packed kernel;
+   then at R = 4, 8, 120 and the large R, on the adversarial stream and at
+   bs = 1024 (n = 20, m = 25, 64 steps), its time per epoch (the card's
+   queue kept full) beside P1's ``full`` (the previous design; bs <= 512;
+   K1 must be no slower) and itself at the other two launch shapes, the
+   plain version's time, and the bound;
 3b. kernel split: the five stage variants of the epoch (P1: loss, state
    and the ``alive`` sums that show each kept stage's work) and the
    factored-layout epoch (P2) against their plain versions at the
@@ -65,6 +74,9 @@ KERNEL_ATOL = 1e-12
 # metric by ~1e-4 of its 10^4 test rows.
 CARD_CPU_RTOL = 2e-3
 CARD_CPU_ATOL = 2e-3
+# bench.py's sweep (20 s x 2 weight decays x 3 reps): one parameter_scan_fast
+# chunk of this many runs at the canonical shape.
+MID_R = 120
 
 
 def log(msg: str) -> None:
@@ -76,8 +88,9 @@ def fail(msg: str) -> None:
 
 
 def make_epoch_inputs(seed, r, n, m, d, bs, num_batches, counts, lrs, mode,
-                      device):
-    """Random state and a random valid stream, packed as ``mode`` says."""
+                      device, rows_fn=None):
+    """Random state and a random valid stream, packed as ``mode`` says;
+    ``rows_fn(r, rows)`` replaces the random (u, i, j)."""
     from mfcd_tpu_torch.ops.kernels import EpochState
     from mfcd_tpu_torch.train.kernel_trainer import _pack_spec
 
@@ -94,6 +107,8 @@ def make_epoch_inputs(seed, r, n, m, d, bs, num_batches, counts, lrs, mode,
     u = g.integers(0, n, (r, rows)).astype(np.int32)
     i = g.integers(0, m, (r, rows)).astype(np.int32)
     j = ((i + g.integers(1, m, (r, rows))) % m).astype(np.int32)
+    if rows_fn is not None:
+        u, i, j = (np.asarray(a, np.int32) for a in rows_fn(r, rows))
     z = (g.random((r, rows)) < 0.5).astype(np.float32)
     valid = np.arange(rows)[None, :] < counts[:, None]
     u, i, j, z = (np.where(valid, a, 0).astype(a.dtype) for a in (u, i, j, z))
@@ -292,6 +307,161 @@ def compare_results(a, b, label):
     return worst
 
 
+def adversarial_rows(r, rows, u_row=62, v_rows=(124, 125)):
+    """Every row of every batch names U row ``u_row``; V alternates
+    (i, j) = (a, b), (b, a), ...: one U row and two V rows each named 64
+    times per batch of 64, at the edge of a 16-block share (63 rows)."""
+    a, b = v_rows
+    alt = np.arange(rows) % 2 == 0
+    row = lambda x: np.broadcast_to(x, (r, rows))
+    return row(np.full(rows, u_row)), row(np.where(alt, a, b)), row(
+        np.where(alt, b, a))
+
+
+def bit_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in
+               zip(tuple(a[0]) + (a[1],), tuple(b[0]) + (b[1],)))
+
+
+def k1_launch_checks(inp, label):
+    """Two launches at the chosen launch shape, one at one 512-thread block
+    per run and one packed, on the same inputs: all four bit-equal."""
+    from mfcd_tpu_torch.ops import kernels
+
+    args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"], inp["count"])
+    r, d, n = inp["state"].u_t.shape
+    c = kernels.cluster_size(r, n, inp["state"].v_t.shape[2], d,
+                             inp["stream"][0].shape[2], inp["count"].device)
+    shapes = (c, c, 1, kernels.PACKED)
+    outs = [kernels._train_epoch(clone_state(inp["state"]), *args,
+                                 pack=inp["pack"], cluster=k)
+            for k in shapes]
+    torch.cuda.synchronize()
+    for k, out in zip(shapes[1:], outs[1:]):
+        if not bit_equal(outs[0], out):
+            fail(f"{label}: launch shape C={c} and C={k} differ")
+    log(f"  {label}: two launches at C={c}, one at C=1 and one packed "
+        f"(C={kernels.PACKED}) bit-equal")
+
+
+def k1_timing(inp, label):
+    """K1 at the chosen launch shape, at one 512-thread block per run
+    (C = 1), packed, and P1's ``full`` (the previous design, where bs <=
+    512) on the same inputs, in turns; returns the entry.  Fails if K1 is
+    slower than ``full``."""
+    from mfcd_tpu_torch.ops import kernel_split as ks
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.scripts.profile_kernel_split import median_ms
+
+    args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"], inp["count"])
+    r, num_batches, bs = inp["stream"][0].shape
+    d, n = inp["state"].u_t.shape[1:]
+    m = inp["state"].v_t.shape[2]
+    c = kernels.cluster_size(r, n, m, d, bs, inp["count"].device)
+    idx = inp["count"].device.index or 0
+    k1 = lambda k: (lambda st: kernels._train_epoch(
+        st, *args, pack=inp["pack"], cluster=k))
+    calls = {"k1": k1(c), "k1_c1": k1(1), "k1_packed": k1(kernels.PACKED)}
+    if bs <= ks.MAX_BATCH:
+        calls["full"] = lambda st: ks.train_epoch_variant(
+            st, *args, pack=inp["pack"], stages=ks.VARIANTS["full"])
+    times = {k: [] for k in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        times[name].append(median_ms(calls[name], inp["state"], warmup=1,
+                                     reps=5))
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    full_ms = ms.get("full")
+    executed = executed_steps(inp, bs) / r
+    occ = lambda k: kernels.epoch_occupancy(n, m, d, bs, k, idx)[0]
+    entry = dict(label=label, r=r, bs=bs, cluster=c,
+                 threads=kernels.block_threads(c), blocks_per_sm=occ(c),
+                 blocks_per_sm_c1=occ(1),
+                 blocks_per_sm_packed=occ(kernels.PACKED),
+                 ms=ms["k1"], ms_c1=ms["k1_c1"], ms_packed=ms["k1_packed"],
+                 full_ms=full_ms, us_per_step=ms["k1"] * 1e3 / executed,
+                 runs_per_s=r / ms["k1"] * 1e3,
+                 full_runs_per_s=None if full_ms is None
+                 else r / full_ms * 1e3)
+    log(f"[3] K1 {label} R={r} bs={bs}: C={c} ({entry['threads']} threads, "
+        f"{entry['blocks_per_sm']} blocks per SM) {ms['k1']:.4f} ms "
+        f"({entry['us_per_step']:.4f} us/step, {entry['runs_per_s']:.1f} "
+        f"runs/s); C=1 ({entry['blocks_per_sm_c1']} per SM) "
+        f"{ms['k1_c1']:.4f} ms; packed ({entry['blocks_per_sm_packed']} per "
+        f"SM) {ms['k1_packed']:.4f} ms; P1 full "
+        + ("n/a (bs > 512)" if full_ms is None else
+           f"{full_ms:.4f} ms ({entry['full_runs_per_s']:.1f} runs/s)")
+        + "; readings " + json.dumps(times))
+    if full_ms is not None and ms["k1"] > full_ms:
+        fail(f"K1 {label} R={r}: {ms['k1']:.4f} ms, slower than P1 full "
+             f"{full_ms:.4f} ms")
+    return entry
+
+
+def large_r() -> int:
+    """Runs per chunk that ``parameter_scan_fast`` picks on this card for
+    the reference grid at one p (n = m = 1000, d = 2, p = 0.2, 5 reps)."""
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.sweep import batched
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    cfg = RunConfig(n=1000, m=1000, d=2, p=0.2, reps=5)
+    return cfg.reps * batched.default_max_bucket(
+        cfg, t_cap=compile_caps(cfg)[0], device="cuda")
+
+
+def k1_phase(dev, n, m, d, bs, nb):
+    """[3] K1 against its plain version in every case, the launch checks,
+    and its timings at R = 4, 8 and the large R; returns (max |diff| over
+    the cases, the R = 4 inputs, the timing entries)."""
+    from mfcd_tpu_torch.scripts import profile_kernel_split as pks
+
+    canon = make_epoch_inputs(1, 4, n, m, d, bs, nb,
+                              [80000, 80000, 80000, 51234],
+                              [1e-3, 3e-3, 1e-3, 1e-2], "full", dev)
+    cases = [("canonical R=4 full", canon)]
+    cases += [("small " + mode, make_epoch_inputs(
+        2, 2, 20, 25, 3, 32, 4, [70, 100], [1e-2, 3e-2], mode, dev))
+        for mode in ("full", "uij", "none")]
+    cases += [
+        ("small bs=1024", make_epoch_inputs(
+            11, 2, 20, 25, 3, 1024, 2, [2048, 1500], [1e-2, 3e-2], "full",
+            dev)),
+        ("canonical shape bs=1024 R=4", make_epoch_inputs(
+            12, 4, n, m, d, 1024, 8, [8192, 8192, 8192, 5000],
+            [1e-3, 3e-3, 1e-3, 1e-2], "full", dev)),
+        ("adversarial R=4", make_epoch_inputs(
+            13, 4, n, m, d, bs, 64, [4096] * 3 + [3000],
+            [1e-3, 3e-3, 1e-3, 1e-2], "full", dev,
+            rows_fn=adversarial_rows)),
+    ]
+    r8 = pks.canonical_inputs(dev)
+    cases.append(("profiler R=8", r8))
+    rl = large_r()
+    log(f"[3] large R: parameter_scan_fast chunks n = m = 1000, d = 2, "
+        f"p = 0.2, 5 reps into {rl} runs on this card")
+    g = np.random.default_rng(14)
+    for r in (MID_R, rl):
+        cases.append((f"R={r} (64 batches)", make_epoch_inputs(
+            14, r, n, m, d, bs, 64, [4096] * (r - 1) + [3000],
+            list(10.0 ** g.uniform(-3.5, -2, r)), "full", dev)))
+    max_err = 0.0
+    for label, inp in cases:
+        max_err = max(max_err, compare_epoch(inp, label)[0])
+        k1_launch_checks(inp, label)
+
+    epoch = lambda seed, r: make_epoch_inputs(
+        seed, r, n, m, d, bs, -(-80000 // bs), [80000] * r, [1e-3] * r,
+        "full", dev)
+    timings = [k1_timing(canon, "canonical"), k1_timing(r8, "profiler"),
+               k1_timing(epoch(16, MID_R), "bench sweep"),
+               k1_timing(epoch(15, rl), "large"),
+               k1_timing(dict(cases)["adversarial R=4"], "adversarial"),
+               k1_timing(make_epoch_inputs(
+                   17, 2, 20, 25, 3, 1024, 64, [65536, 60000], [1e-2, 3e-2],
+                   "full", dev), "small bs=1024")]
+    return max_err, canon, timings
+
+
 def kernel_split_phase(dev, n, m, d, bs):
     """[3b] P1's variants and P2 against their plain versions at the
     profiler's shape, P2 against the fused epoch, then the profiler's path
@@ -447,7 +617,6 @@ def main() -> int:
     from mfcd_tpu_torch.backend import card_line
     from mfcd_tpu_torch.core.results import validate_schema
     from mfcd_tpu_torch.ops import _build, kernels
-    from mfcd_tpu_torch.scripts.profile_kernel_split import median_ms
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
@@ -465,29 +634,20 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
-    # [3] Kernel vs plain version, then timing at the canonical shape.
+    # [3] K1 vs plain version in every case, then timing.
     n, m, d, bs, nb = 1000, 1000, 2, 64, 2048
-    canon = make_epoch_inputs(1, 4, n, m, d, bs, nb,
-                              [80000, 80000, 80000, 51234],
-                              [1e-3, 3e-3, 1e-3, 1e-2], "full", dev)
-    max_err = compare_epoch(canon, "canonical R=4 full")[0]
-    for mode in ("full", "uij", "none"):
-        small = make_epoch_inputs(2, 2, 20, 25, 3, 32, 4, [70, 100],
-                                  [1e-2, 3e-2], mode, dev)
-        max_err = max(max_err, compare_epoch(small, f"small {mode}")[0])
-
+    max_err, canon, timings = k1_phase(dev, n, m, d, bs, nb)
     args = (canon["stream"], canon["lr"], canon["wd"], canon["step0"],
             canon["count"])
-    kernel_ms = median_ms(
-        lambda st: kernels.train_epoch(st, *args, pack=canon["pack"]),
-        canon["state"], warmup=2, reps=7)
+    kernel_ms = timings[0]["ms"]
     plain_ms = time_ms(
         lambda: kernels.train_epoch_reference(canon["state"], *args,
                                               pack=canon["pack"]),
         warmup=1, reps=3)
     k1_bound, k1_by = epoch_bound_ms(canon, n, m, d, bs)
-    log(f"[3] epoch R=4 canonical: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms, bound {k1_bound:.6f} ms ({k1_by})")
+    log(f"[3] epoch R=4 canonical: kernel {kernel_ms:.4f} ms at C="
+        f"{timings[0]['cluster']}, plain {plain_ms:.2f} ms, bound "
+        f"{k1_bound:.6f} ms ({k1_by})")
 
     split_entries = kernel_split_phase(dev, n, m, d, bs)
     # [4] The main path at full width, launches counted around it.
@@ -555,6 +715,9 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
+        "cluster": timings[0]["cluster"],
+        "blocks_per_sm": timings[0]["blocks_per_sm"],
+        "regimes": timings,
     }] + split_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

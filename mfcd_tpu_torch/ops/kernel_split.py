@@ -40,7 +40,7 @@ import torch
 
 from mfcd_tpu_torch.models.mf import gather_rows
 from mfcd_tpu_torch.ops import _build
-from mfcd_tpu_torch.ops.kernels import (MAX_BATCH, SMEM_PER_BLOCK, EpochState,
+from mfcd_tpu_torch.ops.kernels import (SMEM_PER_BLOCK, EpochState,
                                         _adam_consts, _check, _epoch_reference,
                                         _forward, _index_add, _rows_first,
                                         _unpack, _v_grad_interleaved)
@@ -63,6 +63,7 @@ FACTORED_H = 8        # sublane rows of the factored layout
 FACTORED_L = 128      # lanes per row: table row = h * 128 + l
 FACTORED_ROWS = FACTORED_H * FACTORED_L
 ABLATION_SCALE = 1e-9  # weight of the keep-alive terms in the ablated losses
+MAX_BATCH = 512       # one batch row per thread of a 512-thread block
 
 
 def _variant_name(stages) -> str:

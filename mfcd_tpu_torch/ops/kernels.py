@@ -7,15 +7,20 @@ BCE, gradient scatter into U and V, and a dense coupled-weight-decay Adam
 over every element, with the state carried in the ``[R, d, rows]`` layout
 of the JAX package.
 
-- :func:`train_epoch` launches ``ops/csrc/epoch_kernel.cu`` (one thread
-  block per run, state resident in shared memory) for CUDA tensors, and
-  runs :func:`train_epoch_reference` for CPU tensors only.  On the card the
+- :func:`train_epoch` launches ``ops/csrc/epoch_kernel.cu`` (each run on
+  a cluster of C thread blocks, or packed several runs to an SM, state
+  resident in shared memory) for CUDA tensors, and runs
+  :func:`train_epoch_reference` for CPU tensors only.  On the card the
   state tensors are updated in place, as the TPU kernel aliases them.
+- :func:`choose_cluster` picks the launch shape from R and an occupancy
+  query, before the launch: the largest C whose R clusters are all
+  resident at once, else the packed kernel.
 - :func:`train_epoch_reference` is the same function in plain PyTorch:
   index gathers, ``index_add_`` in batch order, the same Adam arithmetic,
   the same executed batches.
 - :func:`epoch_kernel_supported` is the shape gate: the kernel's shared
-  memory must fit one block's 232,448 bytes.
+  memory must fit one block's 232,448 bytes.  Any batch size works: the
+  kernel loops batch rows and gradient entries over its threads.
 
 ``onehot_forward_logits`` (a TPU matmul stand-in for a gather) is not
 ported: ``models.mf.forward_logits`` computes the same values.
@@ -24,7 +29,8 @@ ported: ``models.mf.forward_logits`` computes the same values.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -33,7 +39,11 @@ from mfcd_tpu_torch.ops import _build
 
 EPOCH_LAUNCHES = 0          # kernel launches by train_epoch, nowhere else
 SMEM_PER_BLOCK = 232_448    # bytes of shared memory one Hopper block may use
-MAX_BATCH = 512            # one batch row per thread of a 512-thread block
+# Launch shapes: C in CLUSTER_SIZES, a run on a cluster of C blocks of 512
+# threads (C = 1: one block, no cluster), tried largest first; or PACKED, a
+# run on one block of 256 threads, three to an SM where shared memory allows.
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+PACKED = 0
 _MODES = {"full": 0, "uij": 1, "none": 2}
 _STREAM_ARRAYS = {"full": 1, "uij": 2, "none": 4}
 
@@ -49,16 +59,45 @@ class EpochState(NamedTuple):
     nu_v: torch.Tensor  # [R, d, m]
 
 
-def epoch_smem_bytes(n: int, m: int, d: int, batch_size: int) -> int:
-    """Shared memory of one kernel block (mirrors ``epoch_smem_bytes`` in
-    the .cu source): U, V, 4 moments-and-gradient planes, per-row scratch."""
-    return 4 * (4 * (n + m) * d + batch_size * (5 + 2 * d))
+def epoch_smem_bytes(n: int, m: int, d: int, batch_size: int,
+                     cluster: int = 1) -> int:
+    """Shared memory of one kernel block at launch shape ``cluster``
+    (mirrors ``epoch_smem_bytes`` in the .cu source; PACKED counts as
+    C = 1).  Over the block's share of rows, ceil(n / C) + ceil(m / C): a
+    stamped list head (8 bytes), and the state (twice when C > 1,
+    double-buffered) and its two moments, d floats each; per batch row
+    three list links, three entry rows, three touched-row slots, 2 * d
+    contributions, two (logit, z) pairs and a loss sum; two touched-row
+    counts."""
+    c = max(cluster, 1)
+    rows = -(-n // c) + -(-m // c)
+    planes = 4 if c > 1 else 3
+    return 8 * rows + 4 * (planes * rows * d + batch_size * (14 + 2 * d)
+                           + 2)
 
 
 def epoch_kernel_supported(n: int, m: int, d: int, batch_size: int) -> bool:
-    """Does one run's epoch fit a thread block?  Shape-only."""
-    return (batch_size <= MAX_BATCH
-            and epoch_smem_bytes(n, m, d, batch_size) <= SMEM_PER_BLOCK)
+    """Does one run's epoch fit a thread block?  Shape-only, at C = 1, so
+    the choice of trainer does not depend on R."""
+    return epoch_smem_bytes(n, m, d, batch_size) <= SMEM_PER_BLOCK
+
+
+def choose_cluster(runs: int, resident_runs: Callable[[int], int]) -> int:
+    """The launch shape: the largest C of ``CLUSTER_SIZES`` for which
+    ``resident_runs(C)`` (runs the card holds at once on clusters of C
+    blocks of 512 threads) is at least ``runs``, so every run is resident
+    in one wave; else PACKED (more runs than the card holds one to an SM:
+    several runs share each SM)."""
+    if runs >= 1:
+        for c in CLUSTER_SIZES:
+            if resident_runs(c) >= runs:
+                return c
+    return PACKED
+
+
+def block_threads(cluster: int) -> int:
+    """Threads per block at launch shape ``cluster``."""
+    return 256 if cluster == PACKED else 512
 
 
 def _adam_consts(b1: float, b2: float):
@@ -199,11 +238,56 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device):
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11
-             + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _library():
-    return _build.bind("epoch_kernel.cu", "mfcd_train_epoch", _ARGTYPES)
+    lib = _build.bind("epoch_kernel.cu", "mfcd_train_epoch", _ARGTYPES)
+    occupancy = lib.mfcd_epoch_occupancy
+    if occupancy.argtypes is None:
+        occupancy.argtypes = ([ctypes.c_int] * 5
+                              + [ctypes.POINTER(ctypes.c_int)] * 2)
+        occupancy.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def epoch_occupancy(n: int, m: int, d: int, batch_size: int, cluster: int,
+                    device_index: int) -> tuple:
+    """On card ``device_index``, at launch shape ``cluster``: (blocks that
+    fit on one SM, runs resident on the card at once; 0 where the card does
+    not schedule clusters of that size)."""
+    lib = _library()
+    blocks, runs = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.mfcd_epoch_occupancy(cluster, n, m, d, batch_size,
+                                       ctypes.byref(blocks),
+                                       ctypes.byref(runs))
+    _build.raise_on(lib, err, "epoch kernel occupancy query")
+    return blocks.value, runs.value
+
+
+_printed_clusters: set = set()
+
+
+def cluster_size(runs: int, n: int, m: int, d: int, batch_size: int,
+                 device) -> int:
+    """:func:`choose_cluster` for this shape on ``device``, from the card's
+    occupancy query.  Printed once per process and choice."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    query = lambda c: epoch_occupancy(n, m, d, batch_size, c, idx)[1]
+    c = choose_cluster(runs, query)
+    choice = (idx, runs, n, m, d, batch_size, c)
+    if choice not in _printed_clusters:
+        _printed_clusters.add(choice)
+        blocks = epoch_occupancy(n, m, d, batch_size, c, idx)[0]
+        ctas = max(c, 1)
+        print(f"mfcd_tpu_torch: epoch kernel = {runs} runs x {ctas} "
+              f"block{'s' if ctas > 1 else ''} per run of "
+              f"{block_threads(c)} threads (n={n}, m={m}, d={d}, "
+              f"bs={batch_size}; {blocks} blocks per SM)", flush=True)
+    return c
 
 
 def train_epoch(state: EpochState, stream, lr, wd, step0, count,
@@ -218,7 +302,20 @@ def train_epoch(state: EpochState, stream, lr, wd, step0, count,
     before this epoch) are float32 ``[R]``, ``count`` int32 ``[R]``.
 
     CPU tensors run :func:`train_epoch_reference`.  CUDA tensors launch the
-    kernel, which updates the state in place; anything else raises."""
+    kernel at the launch shape :func:`cluster_size` chooses, which updates
+    the state in place; anything else raises.  Every launch shape gives the
+    same bits; a launch the card refuses raises."""
+    return _train_epoch(state, stream, lr, wd, step0, count, pack, b1, b2,
+                        eps)
+
+
+def _train_epoch(state: EpochState, stream, lr, wd, step0, count,
+                 pack: tuple = ("none", 0, 0, 0, 1), b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 cluster: Optional[int] = None):
+    """:func:`train_epoch` at launch shape ``cluster`` (PACKED or a
+    ``CLUSTER_SIZES`` entry; None: :func:`cluster_size` chooses), for the
+    checks that every launch shape gives the same bits."""
     global EPOCH_LAUNCHES
     dev = state.u_t.device
     if dev.type == "cpu":
@@ -240,8 +337,12 @@ def train_epoch(state: EpochState, stream, lr, wd, step0, count,
     if not epoch_kernel_supported(n, m, d, bs):
         raise ValueError(
             f"train_epoch: n={n}, m={m}, d={d}, bs={bs} needs "
-            f"{epoch_smem_bytes(n, m, d, bs)} B of shared memory "
-            f"(limit {SMEM_PER_BLOCK}) or bs > {MAX_BATCH}")
+            f"{epoch_smem_bytes(n, m, d, bs)} B of shared memory in one "
+            f"block (limit {SMEM_PER_BLOCK}; the state, its moments and the "
+            f"list heads of every row, at one block per run)")
+    if cluster is not None and cluster not in CLUSTER_SIZES + (PACKED,):
+        raise ValueError(f"train_epoch: cluster={cluster}, expected PACKED "
+                         f"({PACKED}) or one of {CLUSTER_SIZES}")
     f32, i32 = torch.float32, torch.int32
     for name, a, rows in zip(EpochState._fields, state, (n, m, n, n, m, m)):
         _check(name, a, f32, (r, d, rows), dev)
@@ -260,13 +361,15 @@ def train_epoch(state: EpochState, stream, lr, wd, step0, count,
     ptr = lambda a: None if a is None else a.data_ptr()
     b1f, omb1, b2f, omb2, log_b1, log_b2 = _adam_consts(b1, b2)
     loss = torch.empty(r, dtype=f32, device=dev)
+    if cluster is None:
+        cluster = cluster_size(r, n, m, d, bs, dev)
     lib = _library()
     err = lib.mfcd_train_epoch(
         *(a.data_ptr() for a in state), *(ptr(a) for a in s_ints), ptr(s_z),
         lr.data_ptr(), wd.data_ptr(), step0.data_ptr(), count.data_ptr(),
         loss.data_ptr(), r, n, m, d, num_batches, bs, _MODES[mode], bits_n,
         bits_m, bits_z, denom, b1f, omb1, b2f, omb2, float(eps), log_b1,
-        log_b2, torch.cuda.current_stream(dev).cuda_stream)
+        log_b2, cluster, torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(lib, err, "epoch kernel")
     EPOCH_LAUNCHES += 1
     return state, loss

@@ -1,5 +1,6 @@
 """The CUDA kernels vs their plain PyTorch versions, on a card: the fused
-epoch (K1), its five stage variants (P1) and the factored-layout epoch (P2).
+epoch (K1) at every launch shape, R and batch size it takes, its five stage
+variants (P1) and the factored-layout epoch (P2).
 
 Imports neither jax nor ``mfcd_tpu``, so it runs on a machine with the card
 and without jax::
@@ -11,7 +12,9 @@ kernel rounds every multiply and add on its own, as the plain version
 does, and sums gradient rows in batch order; the plain version's
 ``index_add_`` on the card adds with atomics, and the loss reductions run
 in another order, so state, loss and the P1 variants' ``alive`` sums (the
-check of each kept stage's work) agree to rtol 1e-5 / atol 1e-6.
+check of each kept stage's work) agree to rtol 1e-5 / atol 1e-6.  K1 has
+no float atomics: two launches, and launches at different launch shapes
+(cluster sizes, one 512-thread block per run, packed), agree bit for bit.
 """
 
 import numpy as np
@@ -32,7 +35,7 @@ def _card() -> torch.device:
     return torch.device("cuda")
 
 
-def _inputs(seed, n, m, d, bs, nb, counts, lrs, mode, dev):
+def _inputs(seed, n, m, d, bs, nb, counts, lrs, mode, dev, rows=None):
     g = np.random.default_rng(seed)
     r = len(counts)
     state = [g.standard_normal((r, d, n)), g.standard_normal((r, d, m))]
@@ -42,6 +45,8 @@ def _inputs(seed, n, m, d, bs, nb, counts, lrs, mode, dev):
     u = g.integers(0, n, shape).astype(np.int32)
     i = g.integers(0, m, shape).astype(np.int32)
     j = ((i + g.integers(1, m, shape)) % m).astype(np.int32)
+    if rows is not None:  # (u, i, j) drawn from rows(g, shape)
+        u, i, j = (np.asarray(a, np.int32) for a in rows(g, shape))
     z = (g.random(shape) < 0.5).astype(np.float32)
     _, bn, bm, bz = KT._pack_spec(n, m, 1)
     uij = u | (i << bn) | (j << (bn + bm))
@@ -72,6 +77,28 @@ def _compare(state, args, pack, dev, kernel=K.train_epoch,
     assert len(got) == len(want)
     for x, y in zip(want[0] + tuple(want[1:]), got[0] + tuple(got[1:])):
         torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-6)
+    return got
+
+
+def _flat(out):
+    return out[0] + tuple(out[1:])
+
+
+def _k1(state, args, pack, dev, cluster):
+    return _flat(K._train_epoch(epoch_state_from_jax(*state, device=dev),
+                                *args, pack=pack, cluster=cluster))
+
+
+def _large_r(dev) -> int:
+    """Runs per chunk of ``parameter_scan_fast`` on this card for the
+    reference grid at one p (n = m = 1000, d = 2, p = 0.2, 5 reps)."""
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.sweep import batched
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    cfg = RunConfig(n=1000, m=1000, d=2, p=0.2, reps=5)
+    return cfg.reps * batched.default_max_bucket(
+        cfg, t_cap=compile_caps(cfg)[0], device=dev)
 
 
 @pytest.mark.cuda
@@ -92,6 +119,94 @@ def test_kernel_matches_plain_version_canonical_shape():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("runs", [1, 4, 8, 120, "large"])
+def test_kernel_matches_plain_version_at_every_r(runs):
+    # R = 1, 4, 8, 120 (bench.py's sweep) and the large R of
+    # parameter_scan_fast: every launch shape the chooser returns at the
+    # canonical shape (16 batches).
+    dev = _card()
+    r = _large_r(dev) if runs == "large" else runs
+    counts = [1024] * (r - 1) + [777]
+    lrs = list(np.geomspace(1e-3, 1e-2, r))
+    state, args, pack = _inputs(11, 1000, 1000, 2, 64, 16, counts, lrs,
+                                "full", dev)
+    c = K.cluster_size(r, 1000, 1000, 2, 64, dev)
+    got = _flat(_compare(state, args, pack, dev))
+    for other in (c, 1, K.PACKED):
+        again = _k1(state, args, pack, dev, other)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), other
+
+
+def _edge_rows(n, m, c):
+    """Rows drawn from the first and last row of every block's share at
+    cluster size c (shares of ceil(n / c) U and ceil(m / c) V rows)."""
+    edges = lambda k: np.unique(np.clip(np.concatenate(
+        [np.arange(0, k, -(-k // c)), np.arange(0, k, -(-k // c)) - 1,
+         [k - 1]]), 0, k - 1))
+
+    def rows(g, shape):
+        eu, ev = edges(n), edges(m)
+        i = g.choice(ev, shape)
+        j = g.choice(ev, shape)
+        j = np.where(i == j, (i + 1) % m, j)
+        return g.choice(eu, shape), i, j
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [K.PACKED, 1, 2, 4, 8, 16])
+def test_kernel_at_every_cluster_size(cluster):
+    # Rows at the edges of each block's share; two launches bit-equal, and
+    # equal to one block per run, wide and packed, bit for bit.
+    dev = _card()
+    if cluster > 1 and K.epoch_occupancy(N, M, D, BS, cluster,
+                                         dev.index or 0)[1] == 0:
+        pytest.skip(f"the card does not schedule clusters of {cluster}")
+    state, args, pack = _inputs(12, N, M, D, BS, B, [70, 100, 128],
+                                [1e-2, 3e-2, 2e-2], "full", dev,
+                                rows=_edge_rows(N, M, max(cluster, 1)))
+    want = _flat(K.train_epoch_reference(
+        epoch_state_from_jax(*state, device=dev), *args, pack=pack))
+    got = _k1(state, args, pack, dev, cluster)
+    torch.cuda.synchronize()
+    for x, y in zip(want, got):
+        torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-6)
+    for other in (_k1(state, args, pack, dev, cluster),
+                  _k1(state, args, pack, dev, 1),
+                  _k1(state, args, pack, dev, K.PACKED)):
+        assert all(torch.equal(x, y) for x, y in zip(got, other))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "canonical"])
+def test_kernel_matches_plain_version_bs1024(shape):
+    # Batches of 1,024 rows, above the block's thread count.
+    dev = _card()
+    if shape == "small":
+        state, args, pack = _inputs(13, N, M, D, 1024, 2, [2048, 1500],
+                                    [1e-2, 3e-2], "full", dev)
+    else:
+        state, args, pack = _inputs(14, 1000, 1000, 2, 1024, 8,
+                                    [8192, 5000], [1e-3, 1e-2], "full", dev)
+    _compare(state, args, pack, dev)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_adversarial_stream():
+    # Every row of a batch names one U row and alternates two V rows: each
+    # of those rows is named 64 times per batch of 64.
+    dev = _card()
+
+    def rows(g, shape):
+        alt = np.arange(shape[-1]) % 2 == 0
+        i = np.broadcast_to(np.where(alt, 124, 125), shape)
+        return np.full(shape, 62), i, 249 - i
+    state, args, pack = _inputs(15, 1000, 1000, 2, 64, 16, [1024, 1000],
+                                [1e-3, 1e-2], "full", dev, rows=rows)
+    _compare(state, args, pack, dev)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take():
     dev = _card()
     state, args, pack = _inputs(5, N, M, D, BS, B, [70, 100], [1e-2, 3e-2],
@@ -104,6 +219,10 @@ def test_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         K.train_epoch(st._replace(u_t=st.u_t.transpose(1, 2).contiguous()
                                   .transpose(1, 2)), *args, pack=pack)
+    with pytest.raises(ValueError, match="cluster"):
+        K._train_epoch(st, *args, pack=pack, cluster=3)
+    with pytest.raises(TypeError):  # the launch shape is not public
+        K.train_epoch(st, *args, pack=pack, cluster=1)
 
 
 @pytest.mark.cuda

@@ -122,6 +122,21 @@ def test_explicit_kernel_at_a_shape_that_does_not_fit_raises():
     assert not tengine.default_use_kernel(small, "cpu")
 
 
+def test_batches_above_512_take_the_kernel_trainer():
+    """The kernel loops batch rows over its threads, so the shape gate
+    alone decides: bs = 1024 runs the kernel trainer on the card, and its
+    CPU branch matches the eager one as at bs = 64."""
+    assert tengine.default_use_kernel(
+        tconfig.RunConfig(n=1000, m=1000, d=2, batch_size=1024), "cuda")
+    cfg = tconfig.RunConfig(n=24, m=28, d=2, p=0.9, s=3.0, lr=1e-2,
+                            num_epochs=2, reps=1, batch_size=1024)
+    a = tengine.run_config(cfg, use_kernel=True, device="cpu")
+    b = tengine.run_config(cfg, use_kernel=False, device="cpu")
+    for k in jresults.RESULT_KEYS:
+        np.testing.assert_allclose(_flat(a[k]), _flat(b[k]), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+
+
 def test_config_layer_matches():
     canon = tconfig.RunConfig(n=1000, m=1000, d=2, p=0.2)
     sh = canon.shapes()

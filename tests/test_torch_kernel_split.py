@@ -261,11 +261,11 @@ def test_wrappers_reject_other_devices():
 
 
 def test_smem_formulas_at_the_profiler_shape():
-    # K1's layout plus the term planes and step sums; P2 at 1,024 rows
-    # plus its j-plane.
+    # The first K1 design's layout (66,304 B: state, moments and a gradient
+    # plane, per-row scratch) plus the term planes and step sums; P2 at
+    # 1,024 rows plus its j-plane.
     extra = 4 * (3 * 64 + 2)
-    assert KS.split_smem_bytes(1000, 1000, 2, 64) == (
-        K.epoch_smem_bytes(1000, 1000, 2, 64) + extra)
+    assert KS.split_smem_bytes(1000, 1000, 2, 64) == 66_304 + extra
     assert KS.split_smem_bytes(1024, 1024, 2, 64, factored=True) == (
         67_840 + 4 * 1024 * 2 + extra)
 

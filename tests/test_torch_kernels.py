@@ -1,5 +1,6 @@
 """The fused training epoch: plain version vs the Pallas kernel (interpret
-mode), the kernel trainer vs ``train_runs_pallas``, and the shape gate.
+mode), the kernel trainer vs ``train_runs_pallas``, the shape gate, the
+cluster-size chooser and the summation order the CUDA kernel reproduces.
 The CUDA kernel vs its plain version is ``tests/test_torch_cuda.py``.
 
 Tolerances: one epoch of the plain version agrees with the Pallas kernel
@@ -30,14 +31,14 @@ N, M, D, BS, B = 20, 25, 3, 32, 4
 ROWS, VROWS, EPOCHS = 100, 40, 2
 
 
-def epoch_inputs(seed, counts, lrs):
+def epoch_inputs(seed, counts, lrs, bs=BS, nb=B):
     g = np.random.default_rng(seed)
     r = len(counts)
     state = [g.standard_normal((r, D, N)), g.standard_normal((r, D, M))]
     state += [np.abs(g.standard_normal(s.shape)) * 1e-2
               for s in (state[0], state[0], state[1], state[1])]
     state = [a.astype(np.float32) for a in state]
-    shape = (r, B, BS)
+    shape = (r, nb, bs)
     u = g.integers(0, N, shape).astype(np.int32)
     i = g.integers(0, M, shape).astype(np.int32)
     j = ((i + g.integers(1, M, shape)) % M).astype(np.int32)
@@ -60,10 +61,7 @@ def packed(mode, u, i, j, z):
     return (u, i, j, z), ("none", 0, 0, 0, 1)
 
 
-@pytest.mark.parametrize("mode", ["full", "uij", "none"])
-def test_epoch_reference_matches_pallas(mode):
-    state, rows, sc = epoch_inputs(0, [70, 100], [1e-2, 3e-2])
-    stream, pack = packed(mode, *rows)
+def _check_against_pallas(state, stream, pack, sc):
     want_state, want_loss = pallas_train_epoch(
         JState(*map(jnp.asarray, state)), tuple(map(jnp.asarray, stream)),
         jnp.asarray(sc["lr"]), jnp.asarray(sc["wd"]),
@@ -79,6 +77,22 @@ def test_epoch_reference_matches_pallas(mode):
     for a, b in zip(want_state, got_state):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["full", "uij", "none"])
+def test_epoch_reference_matches_pallas(mode):
+    state, rows, sc = epoch_inputs(0, [70, 100], [1e-2, 3e-2])
+    stream, pack = packed(mode, *rows)
+    _check_against_pallas(state, stream, pack, sc)
+
+
+def test_epoch_reference_matches_pallas_bs1024():
+    # A batch of 1,024 rows (above the 512 threads of a block) over 20 U
+    # and 25 V rows: every row is named ~50-80 times per batch.
+    state, rows, sc = epoch_inputs(3, [2048, 1500], [1e-2, 3e-2], bs=1024,
+                                   nb=2)
+    stream, pack = packed("full", *rows)
+    _check_against_pallas(state, stream, pack, sc)
 
 
 def _runs(seed, counts, lrs, soft_k=None):
@@ -149,13 +163,124 @@ def test_pack_spec_modes():
 
 
 def test_epoch_kernel_supported_canonical():
-    # n = m = 1000, d = 2, bs = 64: 64,000 B of state and gradient plus
-    # per-row scratch — well inside one block's 232,448 B.
-    assert K.epoch_smem_bytes(1000, 1000, 2, 64) == 66_304
+    # n = m = 1000, d = 2, bs = 64: 48,000 B of state and moments, 16,000
+    # B of stamped list heads, and per batch row the links, touched-row
+    # slots, contributions, (logit, z) pairs and loss sums — inside one
+    # block's 232,448 B, three blocks to an SM.
+    assert K.epoch_smem_bytes(1000, 1000, 2, 64) == 68_616
+    assert 3 * (K.epoch_smem_bytes(1000, 1000, 2, 64) + 1024) <= 233_472
     assert K.epoch_kernel_supported(1000, 1000, 2, 64)
     assert pallas_epoch_supported(1000, 1000, 2, 1250, 64)
     assert not K.epoch_kernel_supported(10_000, 10_000, 2, 64)
-    assert not K.epoch_kernel_supported(100, 100, 2, 1024)
+    # Any batch size whose shared memory fits (no one-row-per-thread cap).
+    assert K.epoch_kernel_supported(100, 100, 2, 1024)
+    assert K.epoch_kernel_supported(1000, 1000, 2, 2048)
+    assert not K.epoch_kernel_supported(1000, 1000, 2, 65_536)
+
+
+@pytest.mark.parametrize("n,m,d,bs", [(1000, 1000, 2, 64), (20, 25, 3, 32),
+                                      (3000, 4000, 4, 1024)])
+def test_epoch_smem_at_every_cluster_size(n, m, d, bs):
+    # C > 1: each block holds ceil(n / C) + ceil(m / C) rows, with the
+    # state twice (double-buffered); a shape that fits at C = 1 fits at
+    # every C the chooser tries.  The packed block is the C = 1 block.
+    for c in K.CLUSTER_SIZES + (K.PACKED,):
+        rows = -(-n // max(c, 1)) + -(-m // max(c, 1))
+        assert K.epoch_smem_bytes(n, m, d, bs, c) == 8 * rows + 4 * (
+            (4 if c > 1 else 3) * rows * d + bs * (14 + 2 * d) + 2)
+        assert (K.epoch_smem_bytes(n, m, d, bs, c)
+                <= K.epoch_smem_bytes(n, m, d, bs))
+    assert K.epoch_smem_bytes(1000, 1000, 2, 64, 16) == 9_656
+
+
+# Runs resident at once, by cluster size (clusters of C blocks of 512
+# threads; C = 1 one block per SM), as a card's occupancy query might report
+# them; 0 where the card does not schedule that size.
+_OCCUPANCY = {
+    "h100-like": {16: 8, 8: 16, 4: 33, 2: 66, 1: 132},
+    "no-16": {16: 0, 8: 15, 4: 33, 2: 66, 1: 132},
+    "none": {16: 0, 8: 0, 4: 0, 2: 0, 1: 132},
+}
+
+
+@pytest.mark.parametrize("card", list(_OCCUPANCY))
+@pytest.mark.parametrize("runs", [1, 4, 8, 120, 310, 2000])
+def test_choose_cluster(runs, card):
+    table = _OCCUPANCY[card]
+    asked = []
+
+    def query(c):
+        asked.append(c)
+        return table[c]
+
+    c = K.choose_cluster(runs, query)
+    # Every run's cluster is resident at once, and no larger size would be;
+    # more runs than one-block-per-SM holds take the packed kernel.
+    assert c == K.PACKED or table[c] >= runs
+    assert all(table[k] < runs for k in K.CLUSTER_SIZES if k > c)
+    fits = [k for k in K.CLUSTER_SIZES if table[k] >= runs]
+    assert c == (max(fits) if fits else K.PACKED)
+    assert (c == K.PACKED) == (runs > table[1])
+    assert asked == [k for k in K.CLUSTER_SIZES if k >= c][:len(asked)]
+    if runs == 120:  # bench.py's sweep: one 512-thread block per run
+        assert c == 1
+
+
+def test_cluster_size_is_printed_once_per_choice(monkeypatch, capsys):
+    table = _OCCUPANCY["h100-like"]
+    monkeypatch.setattr(K, "epoch_occupancy",
+                        lambda n, m, d, bs, c, idx: (3, table.get(c, 0)))
+    monkeypatch.setattr(K, "_printed_clusters", set())
+    assert K.cluster_size(8, 1000, 1000, 2, 64, "cuda:0") == 16
+    assert "8 runs x 16 blocks per run" in capsys.readouterr().out
+    assert K.cluster_size(8, 1000, 1000, 2, 64, "cuda:0") == 16
+    assert capsys.readouterr().out == ""
+    assert K.cluster_size(120, 1000, 1000, 2, 64, "cuda:0") == 1
+    assert ("120 runs x 1 block per run of 512 threads"
+            in capsys.readouterr().out)
+    assert K.cluster_size(310, 1000, 1000, 2, 64, "cuda:0") == K.PACKED
+    assert ("310 runs x 1 block per run of 256 threads"
+            in capsys.readouterr().out)
+
+
+def _loop_sum(rows, idx, vals):
+    """Entry-order sums from 0, one float32 add at a time."""
+    out = np.zeros((idx.shape[0], rows, vals.shape[-1]), np.float32)
+    for r in range(idx.shape[0]):
+        for e in range(idx.shape[1]):
+            for k in range(vals.shape[-1]):
+                out[r, idx[r, e], k] = np.float32(out[r, idx[r, e], k]
+                                                  + vals[r, e, k])
+    return out
+
+
+@pytest.mark.parametrize("stream", ["random", "adversarial"])
+def test_index_add_sums_in_entry_order(stream):
+    # The order the CUDA kernel's entry lists reproduce: U over rows
+    # 0..bs-1, V over i_0, j_0, i_1, j_1, ..., each sum starting from 0.
+    g = np.random.default_rng(7)
+    r, bs = 2, 64
+    if stream == "random":
+        u = g.integers(0, N, (r, bs))
+        i = g.integers(0, M, (r, bs))
+        j = (i + g.integers(1, M, (r, bs))) % M
+    else:  # every row names U row 5; V alternates rows 3 and 4
+        u = np.full((r, bs), 5)
+        i = np.where(np.arange(bs) % 2 == 0, 3, 4)[None].repeat(r, 0)
+        j = 7 - i
+    gu = (g.standard_normal((r, bs, D)) * 10.0 ** g.integers(
+        -4, 2, (r, bs, 1))).astype(np.float32)
+    gv = g.standard_normal((r, bs, D)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    got_u = K._index_add(N, t(u), t(gu)).numpy()
+    np.testing.assert_array_equal(got_u, _loop_sum(N, u, gu))
+    got_v = K._v_grad_interleaved(M, t(i), t(j), t(gv)).numpy()
+    vi = np.stack([i, j], -1).reshape(r, 2 * bs)
+    vv = np.stack([gv, -gv], -2).reshape(r, 2 * bs, D)
+    np.testing.assert_array_equal(got_v, _loop_sum(M, vi, vv))
+    if stream == "adversarial":
+        assert np.count_nonzero(got_u.any(-1)) == r
+        assert np.count_nonzero(got_v.any(-1)) == 2 * r
 
 
 def test_cpu_tensors_take_the_plain_version():
