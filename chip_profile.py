@@ -16,6 +16,9 @@ card:
 4. ``parameter_scan_fast`` on the bench bucket (s = 5 and 6: one chunk of
    8 runs), timed as in 2 and profiled as in 3; its ``mfcd.sweep.*`` spans
    split the sweep's host time into dispatch, collect and export.
+5. the sample stage alone (``sample_and_split``) under each of the nine
+   strategies, at the canonical shape and budgets, 4 runs: one warm-up
+   call, then one profiled as in 3.
 
 Prints a readable report and, as its last line, one JSON object with the
 numbers and the card's name and power limit.  Exits non-zero without a
@@ -32,6 +35,9 @@ import numpy as np
 import torch
 
 from chip_smoke import CANON
+
+STRATEGIES = ("random", "proximity", "top_k", "svd", "margin", "variance",
+              "popularity", "cluster", "user_similarity")
 
 TIMED_CALLS = 3
 
@@ -97,6 +103,34 @@ def profiled(label: str, call) -> dict:
             "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in kernels[:8]]}
 
 
+def sampler_call(strategy: str):
+    """A warmed-up call of ``sample_and_split`` for ``strategy`` on the
+    canonical X of 4 runs, with the engine's capacities and budgets."""
+    from mfcd_tpu_torch.core import prng, rng
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.data.btl import sample_and_split
+    from mfcd_tpu_torch.genx import generate_x
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    cfg = RunConfig(n=CANON["n"], m=CANON["m"], d=CANON["d"], p=CANON["p"],
+                    strategy=strategy, reps=CANON["reps"])
+    sh, r, dev = cfg.shapes(), cfg.reps, torch.device("cuda")
+    t_cap, extra_cap = compile_caps(cfg)
+    keys = rng.rep_keys(rng.config_key(prng.key(0, device=dev), 0)[None],
+                        r).reshape(r, 2)
+    streams = rng.rep_streams(keys)
+    x = generate_x(streams["x_gen"], cfg.n, cfg.m, cfg.d)
+    exact = (sh.num_triplets, sh.extra_test_triplets) == (t_cap, extra_cap)
+    budget = lambda v: None if exact else torch.full(
+        (r,), v, dtype=torch.int32, device=dev)
+    call = lambda: sample_and_split(
+        streams, x, t_cap, extra_cap, strategy,
+        budget=budget(sh.num_triplets),
+        extra_budget=budget(sh.extra_test_triplets))
+    call()
+    return call
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -120,6 +154,8 @@ def main() -> int:
                                grid["reps"] * len(grid["s"]), fast_call)
     out["fast"] = {"s_per_run": fast_s, "walls_s": fast_walls,
                    **profiled("parameter_scan_fast", fast_call)}
+    out["samplers"] = {s: profiled(f"sample_and_split {s}", sampler_call(s))
+                       for s in STRATEGIES}
     print(smi)
     print(json.dumps(out), flush=True)
     return 0

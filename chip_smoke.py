@@ -35,7 +35,18 @@ Phases, each of which raises on failure (nothing is caught and continued):
 4b. fast path: ``parameter_scan_fast`` on the bench bucket (s = 5 and 6:
    one chunk of 8 runs), launches read around it, against the sequential
    ``parameter_scan`` on the same grid;
-5. card vs CPU: the same configuration at 2 epochs, reps = 1, on both.
+5. card vs CPU: the same configuration at 2 epochs, reps = 1, on both;
+6. strategies, the eight samplers besides ``random``: (a) the sample stage
+   alone (``sample_and_split``) at the canonical shape, reps = 2, on the
+   card and on the CPU from the same X (copied from the card) and streams:
+   proximity and top_k bit-equal, the others within the bounds below;
+   (b) ``parameter_scan_fast`` over all eight (one shape bucket each,
+   30 epochs, reps = 4), one epoch kernel launch per epoch per chunk;
+   (c) the sequential ``parameter_scan`` for user_similarity and margin
+   against (b)'s results.  Per strategy: the sampler's path, the sample
+   stage's card time per run, s/run, count against target, accuracy,
+   the cascade's fixpoint passes and blocks, and peak memory per run
+   beside ``sweep/batched.py``'s estimate.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -77,6 +88,17 @@ CARD_CPU_ATOL = 2e-3
 # bench.py's sweep (20 s x 2 weight decays x 3 reps): one parameter_scan_fast
 # chunk of this many runs at the canonical shape.
 MID_R = 120
+# [6] The samplers besides random.  proximity and top_k are integer maps of
+# the same tables: bit-equal.  The others select by a float (a CDF, the
+# margin window, k-means, SVD norms, cosine neighbours) that the card
+# rounds differently from the CPU; one flipped acceptance moves every later
+# winner's split slot, so their split rows are compared as a set over
+# train, val and test, and their counts.
+STRATEGIES = ("proximity", "margin", "variance", "popularity", "top_k",
+              "cluster", "user_similarity", "svd")
+BIT_EQUAL = ("proximity", "top_k")
+SPLIT_ROWS_MIN = 0.99       # share of split rows the card and the CPU share
+COUNT_DIFF_MAX = 0.005      # relative difference of the split counts
 
 
 def log(msg: str) -> None:
@@ -609,6 +631,234 @@ def fast_path_phase():
         f"estimated {est / 1e6:.1f} MB/run")
 
 
+def _split_rows(sp, r):
+    """Run ``r``'s valid split rows as packed int64 keys, train then val
+    then test; and the three counts."""
+    rows, counts = [], []
+    for f in ("train", "val", "test"):
+        c = int(getattr(sp, f + "_count")[r])
+        t = getattr(sp, f)[r, :c].to(torch.int64).cpu()
+        rows.append((t[:, 0] * 2**21 + t[:, 1]) * 2**21 + t[:, 2])
+        counts.append(c)
+    return torch.cat(rows).numpy(), counts
+
+
+def sampler_phase(dev):
+    """[6a] ``sample_and_split`` on the card and on the CPU at the canonical
+    shape, same X and streams, per strategy; returns each strategy's path,
+    warm card ms per run, cascade passes and blocks, and sample-stage peak
+    bytes per run."""
+    from mfcd_tpu_torch.core import prng, rng
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.data.btl import sample_and_split
+    from mfcd_tpu_torch.genx import generate_x
+    from mfcd_tpu_torch.models.mf import init_params
+    from mfcd_tpu_torch.sampling import prp, strategies
+    from mfcd_tpu_torch.sweep import batched
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    reps, info = 2, {}
+    for strategy in STRATEGIES:
+        cfg = RunConfig(n=CANON["n"], m=CANON["m"], d=CANON["d"],
+                        p=CANON["p"], strategy=strategy, reps=reps)
+        sh = cfg.shapes()
+        t_cap, extra_cap = compile_caps(cfg)
+        exact = (sh.num_triplets, sh.extra_test_triplets) == (t_cap,
+                                                              extra_cap)
+        budgets = lambda v, d: None if exact else torch.full(
+            (reps,), v, dtype=torch.int32, device=d)
+
+        def stage(d, x=None):
+            keys = rng.rep_keys(rng.config_key(
+                prng.key(0, device=d), 0)[None], reps).reshape(reps, 2)
+            streams = rng.rep_streams(keys)
+            if x is None:
+                x = generate_x(streams["x_gen"], cfg.n, cfg.m, cfg.d)
+            sp = sample_and_split(
+                streams, x, t_cap, extra_cap, strategy,
+                budget=budgets(sh.num_triplets, d),
+                extra_budget=budgets(sh.extra_test_triplets, d))
+            init_params(streams["init"], cfg.n, cfg.m, cfg.d)
+            return x, sp
+
+        x, card = stage(dev)                         # warm-up, and the result
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        passes, blocks = strategies.CASCADE_PASSES, strategies.CASCADE_BLOCKS
+        t0 = time.perf_counter()
+        stage(dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        passes = strategies.CASCADE_PASSES - passes
+        blocks = strategies.CASCADE_BLOCKS - blocks
+        peak = (torch.cuda.max_memory_allocated() - base) / reps
+        t0 = time.perf_counter()
+        _, cpu = stage(torch.device("cpu"), x.cpu())
+        cpu_s = time.perf_counter() - t0
+
+        shared, positional, count_diff = 1.0, 1.0, 0.0
+        for r in range(reps):
+            if strategy in BIT_EQUAL:
+                for f in card._fields[1:]:
+                    if not torch.equal(getattr(card, f)[r].cpu(),
+                                       getattr(cpu, f)[r]):
+                        fail(f"[6a] {strategy}: card and CPU {f} differ")
+            a, ca = _split_rows(card, r)
+            b, cb = _split_rows(cpu, r)
+            shared = min(shared, len(np.intersect1d(a, b)) / max(len(b), 1))
+            positional = min(positional, float(np.mean(a == b))
+                             if len(a) == len(b) else 0.0)
+            count_diff = max(count_diff, max(abs(p - q) / max(q, 1)
+                                             for p, q in zip(ca, cb)))
+            if ca[2] < 500:
+                fail(f"[6a] {strategy}: {ca[2]} test labels, fewer than 500")
+        if shared < SPLIT_ROWS_MIN or count_diff > COUNT_DIFF_MAX:
+            fail(f"[6a] {strategy}: card and CPU share {shared:.5f} of the "
+                 f"split rows (bound {SPLIT_ROWS_MIN}), counts differ by "
+                 f"{count_diff:.5f} (bound {COUNT_DIFF_MAX})")
+        kind = prp.fast_path_kind(strategy, cfg.n, cfg.m, t_cap, extra_cap)
+        path = {"prefix": "prefix", "distinct": "distinct"}.get(kind,
+                                                                "overdraw")
+        if strategy == "user_similarity":
+            _, tk = strategies.user_similarity_dims(cfg.n, cfg.m, t_cap)
+            attempts = strategies.plan_overdraw(strategy, t_cap, cfg.n, cfg.m)
+            nblk = strategies.user_similarity_blocks(attempts, tk)[1]
+            path += ", blocked" if nblk > 1 else ", direct"
+        est = batched.sampler_bytes(cfg, t_cap)
+        info[strategy] = dict(path=path, sample_ms=ms, passes=passes,
+                              blocks=blocks, sample_peak=peak,
+                              sample_est=est)
+        log(f"[6a] {strategy}: {path}; sample stage {ms:.2f} ms/run on the "
+            f"card (warm; CPU {cpu_s:.2f} s for {reps} runs); card vs CPU "
+            f"{'bit-equal, ' if strategy in BIT_EQUAL else ''}split rows "
+            f"shared {shared:.5f}, equal in place {positional:.5f}, counts "
+            f"within {count_diff:.5f}; cascade {passes} passes, {blocks} "
+            f"blocks; sample-stage peak {peak / 1e6:.1f} MB/run, estimated "
+            f"{est / 1e6:.1f} MB/run")
+    return info
+
+
+def strategy_scan_phase(info, smi):
+    """[6b] ``parameter_scan_fast`` over the eight strategies, then [6c]
+    the sequential scan for user_similarity and margin against it."""
+    import mfcd_tpu_torch
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.core.results import validate_schema
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.sampling import strategies
+    from mfcd_tpu_torch.sweep import batched, engine
+    from mfcd_tpu_torch.utils.io import append_results
+
+    grid = dict(CANON, s=5.0, strategy=list(STRATEGIES))
+    chunks = []
+    device_run = batched._run_bucket_device
+    label = engine.label_splits
+
+    def timed_run(cfg, keys, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        passes, blocks = strategies.CASCADE_PASSES, strategies.CASCADE_BLOCKS
+        t0 = time.perf_counter()
+        out = device_run(cfg, keys, *args, **kw)
+        torch.cuda.synchronize()
+        runs = keys.shape[0] * cfg.reps
+        chunks.append(dict(
+            strategy=cfg.strategy, runs=runs,
+            s=time.perf_counter() - t0,
+            peak=torch.cuda.max_memory_allocated() / runs,
+            counts=out["sample_count"].reshape(-1).tolist(),
+            budgets=np.repeat(kw["budgets"], cfg.reps).tolist(),
+            passes=strategies.CASCADE_PASSES - passes,
+            blocks=strategies.CASCADE_BLOCKS - blocks,
+            test_labels=min_test.pop()))
+        return out
+
+    min_test = []
+
+    def labels(streams, x, splits, *args):
+        out = label(streams, x, splits, *args)
+        min_test.append(int(out[2].count.min()))
+        return out
+
+    batched._run_bucket_device, engine.label_splits = timed_run, labels
+    try:
+        torch.cuda.synchronize()
+        kernels.EPOCH_LAUNCHES = 0
+        t0 = time.perf_counter()
+        fast = mfcd_tpu_torch.parameter_scan_fast(**grid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.EPOCH_LAUNCHES
+    finally:
+        batched._run_bucket_device, engine.label_splits = device_run, label
+    if launches != grid["num_epochs"] * len(chunks):
+        fail(f"[6b] {launches} epoch kernel launches for {len(chunks)} "
+             f"chunks, expected {grid['num_epochs']} per chunk")
+    if sorted(c["strategy"] for c in chunks) != sorted(STRATEGIES):
+        fail(f"[6b] chunks {[c['strategy'] for c in chunks]}")
+    by_strategy = {}
+    for e in fast:
+        strategy = e["params"]["strategy"]
+        problems = validate_schema(e["results"])
+        if problems:
+            fail(f"[6b] {strategy} schema: {problems}")
+        if not all_finite(e["results"]):
+            fail(f"[6b] {strategy}: non-finite values in the results")
+        by_strategy[strategy] = e["results"]
+    for c in chunks:
+        if any(n > b for n, b in zip(c["counts"], c["budgets"])):
+            fail(f"[6b] {c['strategy']}: counts {c['counts']} above the "
+                 f"target {c['budgets']}")
+        if c["test_labels"] < 500:
+            fail(f"[6b] {c['strategy']}: {c['test_labels']} test labels")
+        cfg = RunConfig(n=CANON["n"], m=CANON["m"], d=CANON["d"],
+                        p=CANON["p"], strategy=c["strategy"],
+                        reps=CANON["reps"])
+        est = batched.run_bytes(cfg, engine.compile_caps(cfg)[0])
+        acc = float(np.mean(by_strategy[c["strategy"]]["accuracy"]))
+        a = info[c["strategy"]]
+        log(f"[6] {c['strategy']}: {a['path']}; sample stage "
+            f"{a['sample_ms']:.2f} ms/run; {c['s'] / c['runs']:.4f} s/run in "
+            f"parameter_scan_fast; count {min(c['counts'])}-"
+            f"{max(c['counts'])} of {c['budgets'][0]}; mean accuracy "
+            f"{acc:.4f}; at least {c['test_labels']} test labels; cascade "
+            f"{c['passes']} passes, {c['blocks']} blocks; peak "
+            f"{c['peak'] / 1e6:.1f} MB/run, estimated {est / 1e6:.1f} "
+            f"MB/run; {smi}")
+    log(f"[6b] parameter_scan_fast: {len(STRATEGIES)} strategies, "
+        f"{len(chunks)} chunks of {CANON['reps']} runs in {wall:.3f} s, "
+        f"{launches} epoch kernel launches")
+
+    # The sequential scan over the same grid (so each configuration keeps
+    # its global index and keys), resuming from a file that holds the other
+    # six strategies: it runs user_similarity and margin only.
+    seq_only = ("user_similarity", "margin")
+    with tempfile.TemporaryDirectory(prefix="mfcd_chip_smoke_") as tmp:
+        save_path = os.path.join(tmp, "seq.pkl")
+        append_results(save_path, [e for e in fast if e["params"]["strategy"]
+                                   not in seq_only])
+        t0 = time.perf_counter()
+        mfcd_tpu_torch.parameter_scan(save_path=save_path, resume=True,
+                                      **grid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(save_path, "rb") as f:
+            seq = {e["params"]["strategy"]: e["results"]
+                   for e in pickle.load(f)}
+    for strategy in seq_only:
+        w = compare_results(seq[strategy], by_strategy[strategy],
+                            f"[6c] {strategy} sequential vs fast")
+        top = max(w.items(), key=lambda kv: kv[1])
+        log(f"[6c] {strategy}: parameter_scan (resumed over the same grid), "
+            f"23 keys within rtol {CARD_CPU_RTOL}, atol {CARD_CPU_ATOL} of "
+            f"parameter_scan_fast (largest |diff| {top[0]} {top[1]:.3g})")
+    log(f"[6c] parameter_scan: {len(seq_only)} configurations x "
+        f"{CANON['reps']} runs in {wall:.3f} s "
+        f"({wall / (len(seq_only) * CANON['reps']):.4f} s/run)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -702,6 +952,13 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3g}" for k, v in top)
         + f"; card {t_card:.2f} s, CPU {t_cpu:.2f} s")
 
+    # [6] The other eight samplers: the sample stage card vs CPU, then both
+    # sweep paths.
+    t0 = time.perf_counter()
+    info = sampler_phase(dev)
+    strategy_launches = strategy_scan_phase(info, smi)
+    log(f"[6] strategies: {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_train_epoch",
@@ -715,6 +972,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
+        "strategy_launches": strategy_launches,
         "cluster": timings[0]["cluster"],
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,

@@ -11,7 +11,9 @@ Counterpart of the parts of jax 0.9.0's ``jax/_src/prng.py`` and
   ``(hi, lo)`` per output element; 32-bit bits are ``out1 ^ out2``,
 - ``uniform`` fills the mantissa (``(bits >> 9) | 0x3F800000``) minus 1,
 - ``normal`` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``,
-- ``randint`` combines two keyed draws with the span-multiplier formula.
+- ``randint`` combines two keyed draws with the span-multiplier formula,
+- ``gumbel`` is mode "low", ``-log(-log(uniform(tiny, 1)))``, and
+  ``categorical`` is ``argmax(gumbel + logits)`` over the last axis.
 
 Torch has no full uint32 arithmetic, so every word lives in an int64 lane
 masked to 32 bits.  Products of two 32-bit words would overflow int64 and
@@ -109,18 +111,30 @@ def bits(k: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     return b1 ^ b2
 
 
+def bits_at(k: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The words of ``bits(k, shape)`` at flat (row-major) positions
+    ``index`` only; ``k [..., 2]`` broadcasts against ``index``."""
+    index = index.to(torch.int64)
+    b1, b2 = threefry2x32(k[..., 0], k[..., 1], index >> 32, index & M32)
+    return b1 ^ b2
+
+
 def _as_f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _uniform_from_bits(words: torch.Tensor, minval, maxval) -> torch.Tensor:
+    words = (words >> 9) | 0x3F800000
+    floats = words.to(torch.int32).view(torch.float32) - 1.0
+    lo = _as_f32(minval, words.device)
+    hi = _as_f32(maxval, words.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
 def uniform(k: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
             maxval=1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32."""
-    words = (bits(k, shape) >> 9) | 0x3F800000
-    floats = words.to(torch.int32).view(torch.float32) - 1.0
-    lo = _as_f32(minval, k.device)
-    hi = _as_f32(maxval, k.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return _uniform_from_bits(bits(k, shape), minval, maxval)
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -175,3 +189,47 @@ def randint(k: torch.Tensor, shape: Sequence[int], minval: int,
     offset = mul32(higher % span, mult)
     offset = ((offset + lower % span) & M32) % span
     return (int(minval) + offset).to(torch.int32)
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _gumbel_from_bits(words: torch.Tensor) -> torch.Tensor:
+    return -torch.log(-torch.log(_uniform_from_bits(words, _F32_TINY, 1.0)))
+
+
+def gumbel(k: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, mode "low" (jax's default)."""
+    return _gumbel_from_bits(bits(k, shape))
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(k, logits, axis=-1)`` (with replacement):
+    ``logits`` carries the key's leading dims, then the batch dims, then
+    the categories; returns int64 indices of the first maximum."""
+    shape = logits.shape[k.dim() - 1:]
+    return torch.argmax(gumbel(k, shape) + logits, dim=-1)
+
+
+def masked_uniform_choice(k: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``categorical(k, where(mask, 0, -1e30))``, drawing the gumbel words
+    only where ``mask`` is True.
+
+    ``mask [..., rows, c]`` carries the key's leading dims.  A row picks the
+    first True position of largest gumbel; a row with none picks 0, as the
+    dense draw does (every entry is then -1e30 exactly).  One host sync."""
+    lead = mask.shape[:k.dim() - 1]
+    rows, c = mask.shape[-2:]
+    flat = mask.reshape(-1, rows, c)
+    kflat = k.reshape(-1, 2)
+    g_idx, row, col = flat.nonzero(as_tuple=True)
+    g = _gumbel_from_bits(bits_at(kflat[g_idx], row * c + col))
+    slot = g_idx * rows + row
+    total = flat.shape[0] * rows
+    best = torch.full((total,), -math.inf, device=mask.device).scatter_reduce(
+        0, slot, g, "amax")
+    top = g == best[slot]
+    pick = torch.full((total,), c, dtype=torch.int64, device=mask.device)
+    pick = pick.scatter_reduce(0, slot[top], col[top], "amin")
+    return torch.where(pick == c, 0, pick).reshape(lead + mask.shape[
+        k.dim() - 1:-1])

@@ -6,13 +6,13 @@ Counterpart of ``mfcd_tpu/data/btl.py``:
   (reference ``structure.py:509``),
 - hard labels draw K independent Bernoulli votes, each its own row,
 - soft labels (train split only) average the K votes into one row,
-- the 80/10/10 split and the 500-label test top-up come from the PRP
-  sampler (``mfcd_tpu_torch.sampling.prp``).
+- the 80/10/10 split uses a fixed keyed permutation of the sample's
+  insertion order (reference ``structure.py:710-713``),
+- the test split is topped up to >= 500 labels with fresh triplets that
+  exclude everything already sampled (reference ``structure.py:721-730``).
 
 Every tensor carries a leading run axis ``[R, ...]``; shapes are fixed and
-shortfall is a validity mask.  Only the PRP branch of ``sample_and_split``
-(the ``random`` strategy) is ported; the other strategies raise
-``NotImplementedError`` (ROADMAP M11-M13).
+shortfall is a validity mask.
 """
 
 from __future__ import annotations
@@ -22,9 +22,14 @@ from typing import NamedTuple, Tuple
 import torch
 
 from mfcd_tpu_torch.core import prng, rng
-from mfcd_tpu_torch.core.config import TRAIN_RATIO, VAL_RATIO
-from mfcd_tpu_torch.sampling import prp
-from mfcd_tpu_torch.sampling.dedup import TripletSet
+from mfcd_tpu_torch.core.config import (TRAIN_RATIO, VAL_RATIO, RunConfig,
+                                        ShapeInfo)
+from mfcd_tpu_torch.sampling import (first_occurrence_winners, plan_overdraw,
+                                     prp, propose_candidates,
+                                     sample_triplets)
+from mfcd_tpu_torch.sampling.dedup import (TripletSet, _compact, scatter_rows,
+                                           winners_to_splits)
+from mfcd_tpu_torch.sampling.strategies import propose_margin
 
 
 class LabeledSplit(NamedTuple):
@@ -90,45 +95,115 @@ def btl_label(key: torch.Tensor, x: torch.Tensor, triplets: torch.Tensor,
 def sample_and_split(streams: dict, x: torch.Tensor, t_cap: int,
                      extra_cap: int, strategy: str,
                      popularity_method: str = "zipf", alpha: float = 1.5,
-                     budget=None, extra_budget=None) -> SampledSplits:
+                     budget=None, extra_budget=None,
+                     keep_sample: bool = False) -> SampledSplits:
     """Sample unique triplets, split 80/10/10, and top up the test split.
 
     ``t_cap`` / ``extra_cap`` are buffer capacities; ``budget`` /
     ``extra_budget`` optionally carry the exact triplet targets (ints or
-    ``[R]``).  Capacities are computed in Python float64
-    (``btl.py:140-142``); the split sizes inside ``prp_splits`` in float32.
-    The unique sample itself is not kept (``sample.triplets`` is empty),
-    as the engine never needs it.
+    ``[R]``).  Three paths, chosen from the shape alone as the JAX package
+    chooses them (``prp.fast_path_kind``):
+
+    - prefix (random, proximity, top_k, svd): the sample is a PRP prefix of
+      the strategy's domain, and the split buffers a pure map over output
+      slots; the top-up continues the same permutation;
+    - distinct (margin): PRP-distinct proposals filtered by the window,
+      the top-up a later block of the same permutation;
+    - overdraw: proposals, first-occurrence winners, one fused scatter into
+      the splits, and a top-up drawn by ``sample_triplets`` that excludes
+      the kept sample, compacted behind the test rows.
+
+    ``keep_sample=True`` also returns the compacted unique sample
+    (``SampledSplits.sample.triplets``; empty otherwise).
     """
+    n, m = x.shape[-2:]
+    r = x.shape[0]
+    dev = x.device
     train_cap = int(TRAIN_RATIO * t_cap)
     val_cap = int(VAL_RATIO * t_cap)
     test_cap = t_cap - train_cap - val_cap
+    runs = lambda c: torch.as_tensor(c, dtype=torch.int32,
+                                     device=dev).expand(r)
+    empty = torch.zeros((r, 0, 3), dtype=torch.int32, device=dev)
 
     fast = prp.uniform_domain(strategy, x, t_cap, extra_cap,
-                              key=streams["sampling"])
-    if fast is None:
-        raise NotImplementedError(
-            f"strategy={strategy!r} at n={x.shape[-2]}, m={x.shape[-1]} "
-            "needs a sampler that is not ported to mfcd_tpu_torch yet "
-            "(ROADMAP M11-M13)")
-    dom, decode, sample_key = fast
-    dev = x.device
-    count = torch.as_tensor(t_cap if budget is None else budget,
-                            dtype=torch.int32, device=dev)
-    extra_count = ((extra_cap if extra_budget is None else extra_budget)
-                   if extra_cap > 0 else 0)
-    splits = prp.prp_splits(
-        sample_key, rng.split_key(dev), dom, decode,
-        t_cap, train_cap, val_cap, test_cap, count,
-        extra_cap=extra_cap, extra_count=extra_count,
-    )
-    runs = lambda c: c.expand(x.shape[:-2]).to(torch.int32)
-    empty = torch.zeros((x.shape[0], 0, 3), dtype=torch.int32, device=dev)
+                              key=streams["sampling"],
+                              svd_num_triplets=t_cap, svd_budget=budget)
+    if fast is not None:
+        dom, decode, sample_key = fast
+        count = runs(t_cap if budget is None else budget)
+        extra_count = ((extra_cap if extra_budget is None else extra_budget)
+                       if extra_cap > 0 else 0)
+        splits = prp.prp_splits(
+            sample_key, rng.split_key(dev), dom, decode,
+            t_cap, train_cap, val_cap, test_cap, count,
+            extra_cap=extra_cap, extra_count=extra_count,
+        )
+        sample = (decode(prp.prp_indices(
+            sample_key, torch.arange(t_cap, device=dev), dom))
+            if keep_sample else empty)
+        return SampledSplits(
+            sample=TripletSet(sample, count),
+            train=splits.train, train_count=runs(splits.train_count),
+            val=splits.val, val_count=runs(splits.val_count),
+            test=splits.test, test_count=runs(splits.test_count),
+        )
+
+    # Margin: PRP-distinct proposals need no dedup, and the top-up block at
+    # slot md is disjoint from the main one.  Gate: prp.margin_prp_supported.
+    margin_prp = (strategy == "margin"
+                  and prp.margin_prp_supported(n, m, t_cap, extra_cap))
+    if margin_prp:
+        md = plan_overdraw("margin", t_cap, n, m)
+        cands, win = propose_margin(
+            streams["sampling"], x, md,
+            t_cap if budget is None else budget, prp_distinct=True)
+    else:
+        cands, cvalid = propose_candidates(
+            streams["sampling"], x, t_cap, strategy=strategy,
+            popularity_method=popularity_method, alpha=alpha, budget=budget)
+        win = first_occurrence_winners(cands, cvalid, nm_shape=(n, m))
+    splits, count = winners_to_splits(
+        cands, win, t_cap, train_cap, val_cap, test_cap,
+        key=rng.split_key(dev), budget=budget)
+    sample = TripletSet(_compact(cands, win, t_cap, budget=budget).triplets
+                        if keep_sample else empty, count)
+
+    test_triplets, test_count = splits.test, splits.test_count
+    if extra_cap > 0:
+        if margin_prp:
+            extra_draw = plan_overdraw("margin", extra_cap, n, m)
+            ec, ea = propose_margin(
+                streams["sampling"], x, extra_draw,
+                extra_cap if extra_budget is None else extra_budget,
+                prp_distinct=True, slot_offset=md)
+            extra = _compact(ec, ea, extra_cap, budget=extra_budget)
+        else:
+            # Exclude the kept winners in place: the first ``budget``
+            # winners, the dataset the reference excludes.
+            b = t_cap if budget is None else torch.as_tensor(
+                budget, device=dev).reshape(-1, 1)
+            kept = win & (torch.cumsum(win, dim=1) - 1 < b)
+            extra = sample_triplets(
+                streams["extra_sampling"], x, extra_cap, strategy=strategy,
+                popularity_method=popularity_method, alpha=alpha,
+                exclude=cands, exclude_valid=kept, budget=extra_budget)
+        # Compact concatenation: valid test rows first, then valid extras.
+        both = torch.cat([splits.test, extra.triplets], dim=1)
+        both_valid = torch.cat(
+            [torch.arange(test_cap, device=dev) < test_count.unsqueeze(-1),
+             extra.valid], dim=1)
+        cap = test_cap + extra_cap
+        pos = torch.cumsum(both_valid, dim=1) - 1
+        test_triplets = scatter_rows(both, torch.where(both_valid, pos, cap),
+                                     cap)
+        test_count = test_count + extra.count
+
     return SampledSplits(
-        sample=TripletSet(empty, runs(count)),
-        train=splits.train, train_count=runs(splits.train_count),
-        val=splits.val, val_count=runs(splits.val_count),
-        test=splits.test, test_count=runs(splits.test_count),
+        sample=sample,
+        train=splits.train, train_count=splits.train_count,
+        val=splits.val, val_count=splits.val_count,
+        test=test_triplets, test_count=test_count.to(torch.int32),
     )
 
 
@@ -146,3 +221,29 @@ def label_splits(streams: dict, x: torch.Tensor, splits: SampledSplits, s,
     test = btl_label(streams["labels_test"], x, splits.test,
                      splits.test_count, s, K, soft_label=False)
     return train, val, test
+
+
+class Dataset(NamedTuple):
+    train: LabeledSplit
+    val: LabeledSplit
+    test: LabeledSplit
+    sample: TripletSet  # the full unique triplet sample (diagnostics)
+
+
+def build_dataset(streams: dict, x: torch.Tensor, cfg: RunConfig,
+                  shapes: ShapeInfo | None = None, s=None) -> Dataset:
+    """Sample, split 80/10/10, top up the test split and label, at the
+    config's exact capacities; ``s`` (float or ``[R]``) overrides
+    ``cfg.s``."""
+    if shapes is None:
+        shapes = cfg.shapes()
+    if s is None:
+        s = cfg.s
+    splits = sample_and_split(
+        streams, x, t_cap=shapes.num_triplets,
+        extra_cap=shapes.extra_test_triplets, strategy=cfg.strategy,
+        popularity_method=cfg.popularity_method, alpha=cfg.alpha,
+        keep_sample=True)
+    train, val, test = label_splits(streams, x, splits, s, cfg.K,
+                                    cfg.soft_label)
+    return Dataset(train=train, val=val, test=test, sample=splits.sample)

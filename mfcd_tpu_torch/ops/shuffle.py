@@ -99,10 +99,11 @@ def exact_prefix_permutation(key: torch.Tensor, slots: torch.Tensor, count,
                              k_bits: int) -> torch.Tensor:
     """Exact bijection of ``slots < count`` onto [0, count) (uncapped walk).
 
-    Lanes with ``slots >= count`` are remapped to slot 0 first; their
-    outputs are meaningless and must be discarded by the caller."""
+    Lanes with ``slots >= count`` (as uint32: negative slots too) are
+    remapped to slot 0 first; their outputs are meaningless and must be
+    discarded by the caller."""
     muls, adds = _derive_constants(key)
-    slots = slots.to(torch.int64)
+    slots = slots.to(torch.int64) & M32       # uint32, as in JAX: -1 is out
     count_u = torch.clamp(_col(count, slots) & M32, min=1)
     s = torch.where(slots < count_u, slots, torch.zeros_like(slots))
     x = _mix(s, muls, adds, k_bits)
@@ -114,7 +115,7 @@ def exact_prefix_permutation_inverse(key: torch.Tensor, values: torch.Tensor,
                                      count, k_bits: int) -> torch.Tensor:
     """Exact inverse of :func:`exact_prefix_permutation` on [0, count)."""
     muls, adds = _derive_constants(key)
-    values = values.to(torch.int64)
+    values = values.to(torch.int64) & M32
     count_u = torch.clamp(_col(count, values) & M32, min=1)
     v = torch.where(values < count_u, values, torch.zeros_like(values))
     x = _unmix(v, muls, adds, k_bits)

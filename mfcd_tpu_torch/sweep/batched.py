@@ -33,6 +33,7 @@ from mfcd_tpu_torch.core import prng, rng
 from mfcd_tpu_torch.core.config import (TRAIN_RATIO, RunConfig, SweepSpec,
                                         _next_pow2, bucket_by_shape)
 from mfcd_tpu_torch.core.results import export_results
+from mfcd_tpu_torch.sampling import dedup, prp, strategies
 from mfcd_tpu_torch.sweep.engine import (DEFAULT_SEED, _run_bucket_device,
                                          compile_caps, default_use_kernel)
 from mfcd_tpu_torch.utils.io import (append_results, completed_param_sets,
@@ -43,7 +44,12 @@ from mfcd_tpu_torch.utils.io import (append_results, completed_param_sets,
 _NM_PLANES = 12          # live n x m float32-sized planes at the metrics peak
 _TRAIN_ROW_BYTES = 85    # split 17 + packed stream 4 + 8 int64 shuffle temps
 _EVAL_ROW_BYTES = 17     # u, i, j int32 + label float32 + valid bool
-_SAMPLE_SLOT_BYTES = 64  # 8 int64 sampler temporaries per triplet slot
+_SAMPLE_SLOT_BYTES = 64  # prefix sampler: 8 int64 temporaries per slot
+_DISTINCT_BYTES = 96     # margin: PRP temporaries, candidates, split ranks
+_OVERDRAW_BYTES = 128    # candidates, int64 draws and keys, hash slots
+_ATTEMPT_BYTES = 96      # user_similarity outputs and split ranks per attempt
+_US_POS_BYTES = 26       # per (rank, attempt, top-set position) of a block
+_US_RANK_BYTES = 40      # per (rank, attempt): cascade slots, tags, masks
 CPU_BUDGET_BYTES = 2e9   # the JAX package's working budget, for the CPU
 
 
@@ -108,6 +114,42 @@ def memory_budget_bytes(device) -> float:
     return CPU_BUDGET_BYTES
 
 
+def sampler_bytes(cfg: RunConfig, t: int) -> int:
+    """Estimated device bytes of one run's sample stage at capacity ``t``,
+    by the path ``sample_and_split`` takes (``prp.fast_path_kind``): the
+    prefix map's int64 temporaries per slot; margin's PRP-distinct
+    proposals; or the overdraw's candidates, draws, keys and hash table
+    (16 slots per row, int32), with the exclude top-up's own.
+    user_similarity's attempts run in blocks: per attempt its outputs, per
+    (rank, attempt) of a block the cascade's slots and masks, per (rank,
+    attempt, position) the top-set rows and membership masks, and three
+    cascade tables (base, a pass's copy, the winners')."""
+    sh = cfg.shapes()
+    extra = sh.extra_test_triplets
+    kind = prp.fast_path_kind(cfg.strategy, cfg.n, cfg.m, t, extra)
+    if kind == "prefix":
+        return t * _SAMPLE_SLOT_BYTES
+    plan = lambda target: strategies.plan_overdraw(
+        cfg.strategy, target, cfg.n, cfg.m,
+        popularity_method=cfg.popularity_method, alpha=cfg.alpha)
+    md = plan(t)
+    if kind == "distinct":
+        return (md + (plan(extra) if extra else 0)) * _DISTINCT_BYTES
+    md_extra = plan(extra) if extra else 0
+    if cfg.strategy == "user_similarity":
+        nb, tk = strategies.user_similarity_dims(cfg.n, cfg.m, t)
+        blk, _ = strategies.user_similarity_blocks(md, tk)
+        bits = max(strategies._cascade_bits(md, 0),
+                   strategies._cascade_bits(md_extra, md) if extra else 0)
+        return (md * _ATTEMPT_BYTES + nb * blk * (tk * _US_POS_BYTES
+                                                  + _US_RANK_BYTES)
+                + 3 * 4 * (1 << bits) + cfg.n * cfg.m)
+    table = lambda rows: 4 * (1 << dedup._hash_bits(rows))
+    return (md * _OVERDRAW_BYTES + table(md)
+            + (md_extra * _OVERDRAW_BYTES + table(md + md_extra)
+               if extra else 0))
+
+
 def run_bytes(cfg: RunConfig, t_cap: Optional[int] = None) -> int:
     """Estimated device bytes of one run of ``cfg`` at capacity ``t_cap``.
 
@@ -115,8 +157,7 @@ def run_bytes(cfg: RunConfig, t_cap: Optional[int] = None) -> int:
     metric block (X, U V^T, centred copies, sort indices and ranks);
     the training split, its packed stream and the epoch shuffle's int64
     temporaries per padded row; the validation and test splits; and the
-    prefix sampler's int64 temporaries per triplet slot.  The prefix
-    sampler is the only one ported, so there is no overdraw term."""
+    sample stage's working set (:func:`sampler_bytes`)."""
     sh = cfg.shapes()
     t = sh.num_triplets if t_cap is None else t_cap
     train_rows = int(TRAIN_RATIO * t) * (1 if cfg.soft_label else cfg.K)
@@ -125,7 +166,7 @@ def run_bytes(cfg: RunConfig, t_cap: Optional[int] = None) -> int:
     return (cfg.n * cfg.m * 4 * _NM_PLANES
             + _next_pow2(max(train_rows, 1)) * _TRAIN_ROW_BYTES
             + _next_pow2(max(eval_raw, 1)) * _EVAL_ROW_BYTES
-            + t * _SAMPLE_SLOT_BYTES)
+            + sampler_bytes(cfg, t))
 
 
 _logged_max_bucket: Optional[tuple] = None

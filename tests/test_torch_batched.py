@@ -20,6 +20,7 @@ from mfcd_tpu.sweep.batched import parameter_scan_fast as jax_scan_fast
 import mfcd_tpu_torch
 from mfcd_tpu_torch.core.config import RunConfig
 from mfcd_tpu_torch.sweep import batched
+from mfcd_tpu_torch.sweep.engine import compile_caps
 
 torch.set_num_threads(1)
 
@@ -126,6 +127,28 @@ def test_default_max_bucket(capsys):
     assert capsys.readouterr().out == ""  # printed once per choice
     wide = RunConfig(n=20_000, m=20_000, d=2, p=1e-4, reps=4)
     assert batched.default_max_bucket(wide, device="cpu") == 1
+
+
+def test_sampler_bytes_follow_the_sampler_path():
+    """The per-run estimate charges each strategy its sampler's working
+    set at the canonical shape: nothing per proposal for the prefix map,
+    margin's million PRP-distinct proposals, the overdraw's candidates and
+    hash table, and user_similarity's blocks and 2^23-slot cascade table,
+    so heavier samplers get smaller chunks."""
+    mk = lambda s: RunConfig(n=1000, m=1000, d=2, p=0.2, reps=4, strategy=s)
+    cap = lambda s: compile_caps(mk(s))[0]
+    est = {s: batched.sampler_bytes(mk(s), cap(s))
+           for s in ("random", "proximity", "top_k", "svd", "margin",
+                     "variance", "popularity", "cluster", "user_similarity")}
+    prefix = max(est[s] for s in ("random", "proximity", "top_k", "svd"))
+    assert prefix == 131_072 * batched._SAMPLE_SLOT_BYTES
+    assert est["margin"] == 1_024_288 * batched._DISTINCT_BYTES
+    for s in ("variance", "popularity", "cluster"):
+        assert prefix < est[s] < est["user_similarity"], s
+    assert est["user_similarity"] > 3 * 4 * 2**23
+    chunks = {s: batched.default_max_bucket(mk(s), t_cap=cap(s),
+                                            device="cpu") for s in est}
+    assert chunks["random"] > chunks["margin"] > chunks["user_similarity"]
 
 
 def test_device_and_linear_checks(monkeypatch):

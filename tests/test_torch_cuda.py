@@ -1,6 +1,7 @@
 """The CUDA kernels vs their plain PyTorch versions, on a card: the fused
 epoch (K1) at every launch shape, R and batch size it takes, its five stage
-variants (P1) and the factored-layout epoch (P2).
+variants (P1) and the factored-layout epoch (P2); and every sampler on the
+card against the CPU.
 
 Imports neither jax nor ``mfcd_tpu``, so it runs on a machine with the card
 and without jax::
@@ -277,3 +278,55 @@ def test_split_kernels_reject_what_they_do_not_take():
                                pack=pack, stages=())
     with pytest.raises(ValueError, match="shape"):
         KS.train_epoch_factored(st, *args, pack=pack)
+
+
+SAMPLERS = ("random", "proximity", "top_k", "svd", "margin", "variance",
+            "popularity", "cluster", "user_similarity")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", SAMPLERS)
+def test_sampler_on_the_card_matches_the_cpu(strategy):
+    """``sample_and_split`` on the card and on the CPU from the same X and
+    streams (n = 50, m = 120, p = 0.3, capped budgets): the integer maps
+    bit-equal; the strategies that select by a float within the bounds of
+    ``chip_smoke.py`` [6], a 99 % share of split rows (as a set) and the
+    counts within 0.5 %."""
+    from mfcd_tpu_torch.core import prng, rng
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.data.btl import sample_and_split
+    from mfcd_tpu_torch.genx import generate_x
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    dev = _card()
+    cfg = RunConfig(n=50, m=120, d=2, p=0.3, strategy=strategy, reps=2)
+    sh = cfg.shapes()
+    t_cap, extra_cap = compile_caps(cfg)
+
+    def run(d, x=None):
+        keys = rng.rep_keys(rng.config_key(prng.key(0, device=d), 3)[None],
+                            2).reshape(2, 2)
+        st = rng.rep_streams(keys)
+        if x is None:
+            x = generate_x(st["x_gen"], cfg.n, cfg.m, cfg.d)
+        b = lambda v: torch.full((2,), v, dtype=torch.int32, device=d)
+        return x, sample_and_split(st, x, t_cap, extra_cap, strategy,
+                                   budget=b(sh.num_triplets),
+                                   extra_budget=b(sh.extra_test_triplets))
+
+    x, card = run(dev)
+    _, cpu = run(torch.device("cpu"), x.cpu())
+    for r in range(2):
+        if strategy in ("random", "proximity", "top_k"):
+            for f in card._fields[1:]:
+                assert torch.equal(getattr(card, f)[r].cpu(),
+                                   getattr(cpu, f)[r]), f
+            continue
+        rows = lambda sp: {tuple(t) for f in ("train", "val", "test")
+                           for t in getattr(sp, f)[r, :int(getattr(
+                               sp, f + "_count")[r])].cpu().tolist()}
+        a, b = rows(card), rows(cpu)
+        assert len(a & b) >= 0.99 * len(b)
+        for f in ("train_count", "val_count", "test_count"):
+            p, q = int(getattr(card, f)[r]), int(getattr(cpu, f)[r])
+            assert abs(p - q) <= 0.005 * max(q, 1), f

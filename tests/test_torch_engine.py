@@ -207,7 +207,11 @@ def test_port_imports_neither_jax_nor_mfcd_tpu():
     names = {os.path.relpath(f, REPO) for f in files}
     assert {"chip_profile.py", "mfcd_tpu_torch/ops/kernel_split.py",
             "mfcd_tpu_torch/sweep/batched.py",
-            "mfcd_tpu_torch/scripts/profile_kernel_split.py"} <= names
+            "mfcd_tpu_torch/scripts/profile_kernel_split.py",
+            "mfcd_tpu_torch/sampling/strategies.py",
+            "mfcd_tpu_torch/sampling/dedup.py",
+            "mfcd_tpu_torch/sampling/__init__.py",
+            "mfcd_tpu_torch/genx/clusters.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

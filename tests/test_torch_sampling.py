@@ -130,6 +130,12 @@ def test_forward_prob_matches_jax():
 
 
 def test_unported_modes_raise():
+    """An unknown strategy raises ValueError, as in JAX; every strategy of
+    ``mfcd_tpu.sampling.STRATEGIES`` is ported, and an M14 generator still
+    raises."""
+    from mfcd_tpu.sampling import STRATEGIES as JSTRATEGIES
+    from mfcd_tpu_torch.sampling import STRATEGIES
+
     key = prng.key(0)[None]
     with pytest.raises(NotImplementedError, match="M14"):
         tgenerate_x(key, N, M, D, "low_rank")
@@ -137,15 +143,27 @@ def test_unported_modes_raise():
         tgenerate_x(key, N, M, D, "nope")
     st = trng.rep_streams(key)
     x = tgenerate_x(st["x_gen"], N, M, D, "base")
-    with pytest.raises(NotImplementedError, match="M11"):
-        tbtl.sample_and_split(st, x, 64, 0, "proximity")
+    with pytest.raises(ValueError, match="Unknown triplet sampling"):
+        tbtl.sample_and_split(st, x, 64, 0, "nope")
+    assert STRATEGIES == JSTRATEGIES
 
 
 def test_fast_path_kind_random_matches():
+    """The shape gate of every strategy (prefix / distinct / overdraw)
+    matches the JAX package's, at shapes on both sides of each gate."""
+    from mfcd_tpu.sampling import STRATEGIES
     from mfcd_tpu.sampling.prp import fast_path_kind as jkind
     from mfcd_tpu_torch.sampling import prp as tprp
 
-    for args in [(24, 28, 256, 512), (1000, 1000, 131072, 0), (3, 2, 64, 0),
-                 (2000, 2000, 1024, 0)]:
-        assert tprp.fast_path_kind("random", *args) == jkind("random", *args)
-    assert tprp.fast_path_kind("proximity", 24, 28, 64, 0) is None
+    shapes = [(24, 28, 256, 512), (1000, 1000, 131072, 0), (3, 2, 64, 0),
+              (2000, 2000, 1024, 0), (4, 200, 128, 512), (40, 60, 256, 512),
+              (50, 60, 2048, 0), (60, 80, 256, 512), (20, 300, 2001, 299),
+              (1000, 1000, 100000, 0)]
+    kinds = set()
+    for strategy in STRATEGIES:
+        for args in shapes:
+            want = jkind(strategy, *args)
+            assert tprp.fast_path_kind(strategy, *args) == want, (strategy,
+                                                                 args)
+            kinds.add(want)
+    assert kinds == {"prefix", "distinct", None}
