@@ -18,7 +18,15 @@ card:
    split the sweep's host time into dispatch, collect and export.
 5. the sample stage alone (``sample_and_split``) under each of the nine
    strategies, at the canonical shape and budgets, 4 runs: one warm-up
-   call, then one profiled as in 3.
+   call, then one profiled as in 3;
+6. the generation stage alone (``generate_x``) for the svd, clustered, gmm
+   and social modes, at the canonical shape, 4 runs: one warm-up call,
+   then one profiled as in 3;
+7. the svd generator's decomposition (the scores of 8 canonical runs) by
+   each cuSOLVER driver in float32 and float64, and by the CPU's LAPACK in
+   float32: ms per run, and each top-d singular vector's L2 distance from
+   the float64 CPU solve in units of eps * s_1 / gap (gap: from s_k to its
+   nearest neighbour), the largest and the median.
 
 Prints a readable report and, as its last line, one JSON object with the
 numbers and the card's name and power limit.  Exits non-zero without a
@@ -38,6 +46,8 @@ from chip_smoke import CANON
 
 STRATEGIES = ("random", "proximity", "top_k", "svd", "margin", "variance",
               "popularity", "cluster", "user_similarity")
+
+GENERATIONS = ("svd", "clustered", "gmm", "social")
 
 TIMED_CALLS = 3
 
@@ -131,6 +141,63 @@ def sampler_call(strategy: str):
     return call
 
 
+def generation_call(mode: str):
+    """A warmed-up call of ``generate_x`` for ``mode`` on the canonical
+    shape's ``x_gen`` keys of 4 runs."""
+    from mfcd_tpu_torch.core import prng, rng
+    from mfcd_tpu_torch.genx import generate_x
+
+    r, dev = CANON["reps"], torch.device("cuda")
+    keys = rng.rep_keys(rng.config_key(prng.key(0, device=dev), 0)[None],
+                        r).reshape(r, 2)
+    key = rng.rep_streams(keys)["x_gen"]
+    call = lambda: generate_x(key, CANON["n"], CANON["m"], CANON["d"], mode)
+    call()
+    return call
+
+
+def svd_solvers() -> dict:
+    """[7] The svd generator's decomposition by each solver, against the
+    float64 CPU solve of the same scores."""
+    from mfcd_tpu_torch.core import prng, rng
+
+    r, n, m, d, dev = 8, CANON["n"], CANON["m"], CANON["d"], "cuda"
+    keys = rng.rep_keys(rng.config_key(prng.key(0, device=dev), 0)[None],
+                        r).reshape(r, 2)
+    key = rng.rep_streams(keys)["x_gen"]
+    scores = prng.normal(prng.split(key, 3)[..., 0, :], (n, m))
+    u64, s64, _ = torch.linalg.svd(scores.cpu().double(),
+                                   full_matrices=False)
+    above = torch.cat([torch.full_like(s64[:, :1], float("inf")),
+                       s64[:, :d - 1] - s64[:, 1:d]], dim=-1)
+    gap = torch.minimum(above, s64[:, :d] - s64[:, 1:d + 1])
+    unit = 2.0 ** -24 * s64[:, :1] / gap
+    solvers = {f"card {dt} {drv}": (lambda drv=drv, dt=dt: torch.linalg.svd(
+        scores.to(getattr(torch, dt)), full_matrices=False, driver=drv))
+        for dt in ("float32", "float64") for drv in ("gesvdj", "gesvd")}
+    solvers["cpu float32 LAPACK"] = lambda: torch.linalg.svd(
+        scores.cpu(), full_matrices=False)
+    out = {}
+    for name, solve in solvers.items():
+        solve()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, _, _ = solve()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / r
+        u = u.cpu().double()[..., :d]
+        sign = torch.sign(torch.sum(u * u64[..., :d], dim=-2, keepdim=True))
+        units = (u * sign - u64[..., :d]).norm(dim=-2) / unit
+        out[name] = {"ms_per_run": ms, "units_max": float(units.max()),
+                     "units_median": float(units.median())}
+        print(f"svd {name}: {ms:.2f} ms/run; top-{d} vectors "
+              f"{float(units.max()):.3g} (median "
+              f"{float(units.median()):.3g}) x eps s_1 / gap from exact",
+              flush=True)
+    out["relative_gaps"] = (gap / s64[:, :1]).flatten().tolist()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -156,6 +223,9 @@ def main() -> int:
                    **profiled("parameter_scan_fast", fast_call)}
     out["samplers"] = {s: profiled(f"sample_and_split {s}", sampler_call(s))
                        for s in STRATEGIES}
+    out["generators"] = {g: profiled(f"generate_x {g}", generation_call(g))
+                         for g in GENERATIONS}
+    out["svd_solvers"] = svd_solvers()
     print(smi)
     print(json.dumps(out), flush=True)
     return 0

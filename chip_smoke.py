@@ -46,7 +46,16 @@ Phases, each of which raises on failure (nothing is caught and continued):
    against (b)'s results.  Per strategy: the sampler's path, the sample
    stage's card time per run, s/run, count against target, accuracy,
    the cascade's fixpoint passes and blocks, and peak memory per run
-   beside ``sweep/batched.py``'s estimate.
+   beside ``sweep/batched.py``'s estimate;
+7. generators, the ten modes besides ``base``: (a) ``generate_x`` at the
+   canonical shape, reps = 2, on the card and on the CPU from the same
+   keys, within the bounds below, with each mode's warm card ms per run;
+   (b) ``parameter_scan_fast`` over all ten (one shape bucket each, 30
+   epochs, reps = 4), one epoch kernel launch per epoch per chunk, peak
+   memory per run under ``run_bytes``; (c) ``parameter_scan_ground_truth``
+   on the card against the CPU (base over s in {1, 5} and p in {0.05,
+   0.2}, and one gmm configuration), ``evaluate_ground_truth`` timed at
+   reps = 4, and no epoch kernel launch in (c).
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -99,6 +108,25 @@ STRATEGIES = ("proximity", "margin", "variance", "popularity", "top_k",
 BIT_EQUAL = ("proximity", "top_k")
 SPLIT_ROWS_MIN = 0.99       # share of split rows the card and the CPU share
 COUNT_DIFF_MAX = 0.005      # relative difference of the split counts
+# [7] The generation modes besides base.  Card against CPU from the same
+# keys: the integer intermediates (Watts-Strogatz adjacency, cluster
+# assignments) bit-equal; X within GEN_RTOL x max|X| + GEN_ATOL per mode
+# (the card's QR, SVD, matmuls and sums round differently); svd's factors
+# up to each mode's sign (only the joint sign of (u_k, v_k) is defined),
+# within a bound that scales with each run's conditioning, and X against
+# the card's own factors; clustered's and gmm's labels shared >= 99 %, X
+# where all agree.
+GENERATIONS = ("low_rank", "clustered", "structured", "svd", "correlated",
+               "graph", "social", "temporal", "hierarchical", "gmm")
+GEN_RTOL = 1e-4
+GEN_ATOL = 1e-6
+LABEL_SHARE_MIN = 0.99
+# svd's top singular vectors, card against CPU, in units of eps * s_1 /
+# gap_k (L2): the CPU's float32 LAPACK lies a few such units from the
+# exact vectors at the canonical shape, the card's float64 solve far less
+# (``chip_profile.py``'s ``svd_solvers``).
+SVD_C = 10.0
+EPS32 = 2.0 ** -24
 
 
 def log(msg: str) -> None:
@@ -739,18 +767,21 @@ def sampler_phase(dev):
     return info
 
 
-def strategy_scan_phase(info, smi):
-    """[6b] ``parameter_scan_fast`` over the eight strategies, then [6c]
-    the sequential scan for user_similarity and margin against it."""
+def fast_scan_by_chunk(grid, field, phase):
+    """``parameter_scan_fast(**grid)`` on the card, each chunk's wall, peak
+    memory per run, counts against their budgets, cascade passes and
+    blocks and fewest test labels recorded.  Fails unless the epoch kernel
+    launched once per epoch per chunk, each value of ``grid[field]`` took
+    one chunk, every result has the schema and finite values, no count is
+    above its target and every run has at least 500 test labels.  Returns
+    (the scan's results, results by value, chunks by value, launches,
+    wall)."""
     import mfcd_tpu_torch
-    from mfcd_tpu_torch.core.config import RunConfig
     from mfcd_tpu_torch.core.results import validate_schema
     from mfcd_tpu_torch.ops import kernels
     from mfcd_tpu_torch.sampling import strategies
     from mfcd_tpu_torch.sweep import batched, engine
-    from mfcd_tpu_torch.utils.io import append_results
 
-    grid = dict(CANON, s=5.0, strategy=list(STRATEGIES))
     chunks = []
     device_run = batched._run_bucket_device
     label = engine.label_splits
@@ -764,7 +795,7 @@ def strategy_scan_phase(info, smi):
         torch.cuda.synchronize()
         runs = keys.shape[0] * cfg.reps
         chunks.append(dict(
-            strategy=cfg.strategy, runs=runs,
+            cfg=cfg, runs=runs,
             s=time.perf_counter() - t0,
             peak=torch.cuda.max_memory_allocated() / runs,
             counts=out["sample_count"].reshape(-1).tolist(),
@@ -793,32 +824,44 @@ def strategy_scan_phase(info, smi):
     finally:
         batched._run_bucket_device, engine.label_splits = device_run, label
     if launches != grid["num_epochs"] * len(chunks):
-        fail(f"[6b] {launches} epoch kernel launches for {len(chunks)} "
+        fail(f"{phase} {launches} epoch kernel launches for {len(chunks)} "
              f"chunks, expected {grid['num_epochs']} per chunk")
-    if sorted(c["strategy"] for c in chunks) != sorted(STRATEGIES):
-        fail(f"[6b] chunks {[c['strategy'] for c in chunks]}")
-    by_strategy = {}
+    values = [getattr(c["cfg"], field) for c in chunks]
+    if sorted(values) != sorted(grid[field]):
+        fail(f"{phase} chunks {values}")
+    by_value = {}
     for e in fast:
-        strategy = e["params"]["strategy"]
+        value = e["params"][field]
         problems = validate_schema(e["results"])
         if problems:
-            fail(f"[6b] {strategy} schema: {problems}")
+            fail(f"{phase} {value} schema: {problems}")
         if not all_finite(e["results"]):
-            fail(f"[6b] {strategy}: non-finite values in the results")
-        by_strategy[strategy] = e["results"]
-    for c in chunks:
+            fail(f"{phase} {value}: non-finite values in the results")
+        by_value[value] = e["results"]
+    for value, c in zip(values, chunks):
         if any(n > b for n, b in zip(c["counts"], c["budgets"])):
-            fail(f"[6b] {c['strategy']}: counts {c['counts']} above the "
-                 f"target {c['budgets']}")
+            fail(f"{phase} {value}: counts {c['counts']} above the target "
+                 f"{c['budgets']}")
         if c["test_labels"] < 500:
-            fail(f"[6b] {c['strategy']}: {c['test_labels']} test labels")
-        cfg = RunConfig(n=CANON["n"], m=CANON["m"], d=CANON["d"],
-                        p=CANON["p"], strategy=c["strategy"],
-                        reps=CANON["reps"])
-        est = batched.run_bytes(cfg, engine.compile_caps(cfg)[0])
-        acc = float(np.mean(by_strategy[c["strategy"]]["accuracy"]))
-        a = info[c["strategy"]]
-        log(f"[6] {c['strategy']}: {a['path']}; sample stage "
+            fail(f"{phase} {value}: {c['test_labels']} test labels")
+    return fast, by_value, dict(zip(values, chunks)), launches, wall
+
+
+def strategy_scan_phase(info, smi):
+    """[6b] ``parameter_scan_fast`` over the eight strategies, then [6c]
+    the sequential scan for user_similarity and margin against it."""
+    import mfcd_tpu_torch
+    from mfcd_tpu_torch.sweep import batched, engine
+    from mfcd_tpu_torch.utils.io import append_results
+
+    grid = dict(CANON, s=5.0, strategy=list(STRATEGIES))
+    fast, by_strategy, chunks, launches, wall = fast_scan_by_chunk(
+        grid, "strategy", "[6b]")
+    for strategy, c in chunks.items():
+        est = batched.run_bytes(c["cfg"], engine.compile_caps(c["cfg"])[0])
+        acc = float(np.mean(by_strategy[strategy]["accuracy"]))
+        a = info[strategy]
+        log(f"[6] {strategy}: {a['path']}; sample stage "
             f"{a['sample_ms']:.2f} ms/run; {c['s'] / c['runs']:.4f} s/run in "
             f"parameter_scan_fast; count {min(c['counts'])}-"
             f"{max(c['counts'])} of {c['budgets'][0]}; mean accuracy "
@@ -857,6 +900,247 @@ def strategy_scan_phase(info, smi):
         f"{CANON['reps']} runs in {wall:.3f} s "
         f"({wall / (len(seq_only) * CANON['reps']):.4f} s/run)")
     return launches
+
+
+def _runs_keys(device, reps):
+    """The ``x_gen`` keys of config 0's first ``reps`` runs (seed 0)."""
+    from mfcd_tpu_torch.core import prng, rng
+
+    keys = rng.rep_keys(rng.config_key(prng.key(0, device=device), 0)[None],
+                        reps).reshape(reps, 2)
+    return rng.rep_streams(keys)["x_gen"]
+
+
+def _within(got, want, label, rtol=GEN_RTOL, atol=GEN_ATOL):
+    """max|got - want| <= rtol * max|want| + atol, else fail; returns (max
+    |diff|, max|want|)."""
+    err = float((got.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite values on the card")
+    if err > rtol * scale + atol:
+        fail(f"{label}: max|diff| {err:.3g} > {rtol} x max|ref| "
+             f"{scale:.3g} + {atol}")
+    return err, scale
+
+
+def _label_share(a, b) -> float:
+    return float((a.cpu() == b).to(torch.float64).mean())
+
+
+def generation_check(mode, kc, kp, x_card, x_cpu, n, m, d):
+    """[7a] card against CPU for one mode, from keys ``kc`` (card) and
+    ``kp`` (CPU): returns the line's check text."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.genx import clusters, generators, graphs
+
+    label = f"[7a] {mode}"
+    if mode in ("graph", "social"):
+        sub = lambda k: prng.split(k, 5 if mode == "graph" else 3)[..., 2, :]
+        a = graphs.watts_strogatz_adjacency(sub(kc), n)
+        b = graphs.watts_strogatz_adjacency(sub(kp), n)
+        if not torch.equal(a.cpu(), b):
+            fail(f"{label}: the Watts-Strogatz adjacency differs")
+        text = f"adjacency bit-equal ({int(b.sum())} entries)"
+    elif mode in ("structured", "hierarchical"):
+        size = m if mode == "structured" else n
+        sub = lambda k: prng.split(k, 4)[..., 1, :]
+        a, b = (prng.randint(sub(k), (size,), 0, 5) for k in (kc, kp))
+        if not torch.equal(a.cpu(), b):
+            fail(f"{label}: the cluster assignments differ")
+        text = "assignments bit-equal"
+    elif mode == "svd":
+        return svd_check(label, kc, kp, x_card, n, m, d)
+    elif mode == "clustered":
+        def labels(k):
+            kx, kk = prng.split(k).unbind(-2)
+            x = generators.generate_base(kx, n, m, d)
+            return clusters.kmeans(kk, x.transpose(-1, -2), 5)[0]
+        share = _label_share(labels(kc), labels(kp))
+        if share < LABEL_SHARE_MIN:
+            fail(f"{label}: card and CPU share {share:.5f} of the item "
+                 f"labels (bound {LABEL_SHARE_MIN})")
+        text = f"item labels shared {share:.5f}"
+        if share < 1.0:
+            return text + "; X not compared (labels differ)"
+    elif mode == "gmm":
+        def labels(k):
+            k1, k2, k3, k4 = prng.split(k, 4).unbind(-2)
+            return torch.cat([
+                clusters.gmm_fit_predict(k3, prng.normal(k1, (n, d)), 5)[0],
+                clusters.gmm_fit_predict(k4, prng.normal(k2, (m, d)), 5)[0]],
+                dim=-1)
+        share = _label_share(labels(kc), labels(kp))
+        if share < LABEL_SHARE_MIN:
+            fail(f"{label}: card and CPU share {share:.5f} of the user and "
+                 f"item labels (bound {LABEL_SHARE_MIN})")
+        text = f"user and item labels shared {share:.5f}"
+        if share < 1.0:
+            return text + "; X not compared (labels differ)"
+    else:
+        text = "floats only"
+    err, scale = _within(x_card, x_cpu, f"{label} X")
+    return text + f"; X max|diff| {err:.3g} of max|X| {scale:.3g}"
+
+
+def svd_check(label, kc, kp, x_card, n, m, d):
+    """[7a] svd: the top-d singular vectors up to each mode's sign, each
+    within SVD_C * eps * s_1 / gap_k (L2) of the CPU's, where gap_k is the
+    distance from s_k to its nearest neighbour (the CPU's float32 LAPACK
+    itself lies a few such units from the exact vectors); the singular
+    values within GEN_RTOL * s_1; and the card's X, in every run, within
+    GEN_RTOL * max|X| + GEN_ATOL of U V^T assembled on the CPU from the
+    card's factors and the CPU's noise draws (X follows the sign each
+    solver picks, so the two solvers' X differ where a mode flipped)."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.genx import generators
+
+    uc, sc, vc = (a.cpu() for a in generators.svd_modes(kc, n, m, d))
+    up, sp, vp = generators.svd_modes(kp, n, m, d)
+    sign = torch.sign(torch.sum(uc * up, dim=-2, keepdim=True))  # [R, 1, d]
+    s = sp.to(torch.float64)
+    above = torch.cat([torch.full_like(s[:, :1], math.inf),
+                       s[:, :d - 1] - s[:, 1:d]], dim=-1)
+    gap = torch.minimum(above, s[:, :d] - s[:, 1:d + 1])
+    err = torch.maximum((uc * sign - up).norm(dim=-2),
+                        (vc * sign - vp).norm(dim=-2)).to(torch.float64)
+    units = float((err / (EPS32 * s[:, :1] / gap)).max())
+    if units > SVD_C:
+        fail(f"{label}: singular vectors {units:.3g} x eps s_1 / gap from "
+             f"the CPU's (bound {SVD_C})")
+    _within(sc, sp, f"{label} singular values", atol=0.0)
+    _, k2, k3 = prng.split(kp, 3).unbind(-2)
+    sq = torch.sqrt(sc[..., :d]).unsqueeze(-2)
+    u = uc * sq + 0.1 * prng.normal(k2, (n, d))
+    v = vc * sq + 0.1 * prng.normal(k3, (m, d))
+    x_err, scale = _within(x_card, u @ v.transpose(-1, -2), f"{label} X")
+    return (f"{int((sign < 0).sum())} of {sign.numel()} modes flipped sign; "
+            f"vectors within {units:.3g} x eps s_1 / gap of the CPU's "
+            f"(bound {SVD_C}; relative gaps "
+            + ", ".join(f"{g:.4f}" for g in (gap / s[:, :1]).flatten())
+            + f"); X max|diff| {x_err:.3g} of max|X| {scale:.3g} against "
+            f"the card's factors assembled on the CPU")
+
+
+def generation_phase(dev):
+    """[7a] ``generate_x`` for the ten modes besides ``base`` at the
+    canonical shape, R = 2, on the card and on the CPU from the same keys;
+    returns each mode's warm card ms per run and generation peak bytes per
+    run."""
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.genx import generate_x
+    from mfcd_tpu_torch.sweep import batched
+
+    n, m, d, reps = CANON["n"], CANON["m"], CANON["d"], 2
+    kc, kp = _runs_keys(dev, reps), _runs_keys(torch.device("cpu"), reps)
+    info = {}
+    for mode in GENERATIONS:
+        x_card = generate_x(kc, n, m, d, mode)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        x_card = generate_x(kc, n, m, d, mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        peak = (torch.cuda.max_memory_allocated() - base) / reps
+        t0 = time.perf_counter()
+        x_cpu = generate_x(kp, n, m, d, mode)
+        cpu_s = time.perf_counter() - t0
+        if tuple(x_card.shape) != (reps, n, m):
+            fail(f"[7a] {mode}: X has shape {tuple(x_card.shape)}")
+        text = generation_check(mode, kc, kp, x_card, x_cpu, n, m, d)
+        est = batched.generation_bytes(RunConfig(
+            n=n, m=m, d=d, generation=mode)) + n * m * 4
+        info[mode] = dict(ms=ms, peak=peak)
+        log(f"[7a] {mode}: {ms:.2f} ms/run on the card (warm; CPU "
+            f"{cpu_s:.2f} s for {reps} runs); {text}; generation peak "
+            f"{peak / 1e6:.1f} MB/run, X and generation_bytes "
+            f"{est / 1e6:.1f} MB/run")
+    return info
+
+
+def generation_scan_phase(gen_info, smi):
+    """[7b] ``parameter_scan_fast`` over the ten modes, one shape bucket
+    each; fails if a chunk's peak memory per run is above ``run_bytes``."""
+    from mfcd_tpu_torch.sweep import batched, engine
+
+    grid = dict(CANON, s=5.0, generation=list(GENERATIONS))
+    _, by_mode, chunks, launches, wall = fast_scan_by_chunk(
+        grid, "generation", "[7b]")
+    for mode, c in chunks.items():
+        est = batched.run_bytes(c["cfg"], engine.compile_caps(c["cfg"])[0])
+        res = by_mode[mode]
+        log(f"[7] {mode}: generation {gen_info[mode]['ms']:.2f} ms/run; "
+            f"{c['s'] / c['runs']:.4f} s/run in parameter_scan_fast; count "
+            f"{min(c['counts'])}-{max(c['counts'])} of {c['budgets'][0]}; "
+            f"mean accuracy {float(np.mean(res['accuracy'])):.4f}, "
+            f"gt_accuracy {float(np.mean(res['gt_accuracy'])):.4f}; at "
+            f"least {c['test_labels']} test labels; peak "
+            f"{c['peak'] / 1e6:.1f} MB/run, estimated {est / 1e6:.1f} "
+            f"MB/run; {smi}")
+        if c["peak"] > est:
+            fail(f"[7b] {mode}: peak {c['peak'] / 1e6:.1f} MB/run above "
+                 f"run_bytes's {est / 1e6:.1f} MB/run")
+    log(f"[7b] parameter_scan_fast: {len(GENERATIONS)} generation modes, "
+        f"{len(chunks)} chunks of {CANON['reps']} runs in {wall:.3f} s, "
+        f"{launches} epoch kernel launches")
+    return launches
+
+
+def ground_truth_phase():
+    """[7c] ``parameter_scan_ground_truth`` on the card against the CPU
+    (base over s and p, and one gmm configuration), then
+    ``evaluate_ground_truth`` at reps = 4 timed; no epoch kernel launch."""
+    import mfcd_tpu_torch
+    from mfcd_tpu_torch.ops import kernels
+
+    shape = dict(n=CANON["n"], m=CANON["m"], d=CANON["d"])
+    scans = [dict(shape, s=[1.0, 5.0], p=[0.05, 0.2], reps=2),
+             dict(shape, s=5.0, p=CANON["p"], reps=2, generation="gmm")]
+    torch.cuda.synchronize()
+    kernels.EPOCH_LAUNCHES = 0
+    worst, configs = 0.0, 0
+    for grid in scans:
+        t0 = time.perf_counter()
+        card = mfcd_tpu_torch.parameter_scan_ground_truth(**grid)
+        t_card = time.perf_counter() - t0
+        cpu = mfcd_tpu_torch.parameter_scan_ground_truth(device="cpu",
+                                                         **grid)
+        for a, b in zip(card, cpu):
+            if a["params"] != b["params"]:
+                fail(f"[7c] params {a['params']} vs {b['params']}")
+            for k in ("gt_loss", "gt_accuracy"):
+                x = np.asarray(a["results"][k], np.float64)
+                y = np.asarray(b["results"][k], np.float64)
+                if not (np.all(np.isfinite(x)) and np.allclose(
+                        x, y, rtol=CARD_CPU_RTOL, atol=CARD_CPU_ATOL)):
+                    fail(f"[7c] {a['params']}: {k} card {x} vs CPU {y}")
+                worst = max(worst, float(np.abs(x - y).max()))
+        configs += len(card)
+        mode = grid.get("generation", "base")
+        log(f"[7c] parameter_scan_ground_truth {mode}: {len(card)} "
+            f"configs x {grid['reps']} runs in "
+            f"{t_card:.3f} s on the card; gt_accuracy "
+            + ", ".join(f"{np.mean(e['results']['gt_accuracy']):.4f}"
+                        for e in card))
+    reps = CANON["reps"]
+    mfcd_tpu_torch.evaluate_ground_truth(p=CANON["p"], s=5.0, reps=reps,
+                                         **shape)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, accs = mfcd_tpu_torch.evaluate_ground_truth(
+        p=CANON["p"], s=5.0, reps=reps, **shape)
+    torch.cuda.synchronize()
+    s_run = (time.perf_counter() - t0) / reps
+    if kernels.EPOCH_LAUNCHES:
+        fail(f"[7c] the ground truth launched the epoch kernel "
+             f"{kernels.EPOCH_LAUNCHES} times")
+    log(f"[7c] ground truth: {configs} configurations card vs CPU within "
+        f"rtol {CARD_CPU_RTOL}, atol {CARD_CPU_ATOL} (largest |diff| "
+        f"{worst:.3g}); evaluate_ground_truth {s_run:.4f} s/run (reps "
+        f"{reps}, gt_accuracy {np.mean(accs):.4f}, gt_loss "
+        f"{np.mean(losses):.4f}); 0 epoch kernel launches")
 
 
 def main() -> int:
@@ -959,6 +1243,14 @@ def main() -> int:
     strategy_launches = strategy_scan_phase(info, smi)
     log(f"[6] strategies: {time.perf_counter() - t0:.1f} s")
 
+    # [7] The other ten generators: the generation stage card vs CPU, the
+    # batched scan over all ten, and the ground-truth oracle.
+    t0 = time.perf_counter()
+    gen_info = generation_phase(dev)
+    generation_launches = generation_scan_phase(gen_info, smi)
+    ground_truth_phase()
+    log(f"[7] generators and ground truth: {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_train_epoch",
@@ -973,6 +1265,7 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": None,
         "strategy_launches": strategy_launches,
+        "generation_launches": generation_launches,
         "cluster": timings[0]["cluster"],
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,

@@ -4,13 +4,18 @@ Matrix factorization with comparison data, on an NVIDIA H100: the same
 sweep engine (sequential and batched), samplers, labels, trainer and
 metrics as the JAX package, with its fused training epoch as a
 hand-written CUDA kernel (``ops/csrc/epoch_kernel.cu``) and the
-kernel-split profiler's two kernels beside it (``ops/kernel_split.py``).  The entry points run on the card unless
-the caller passes ``device="cpu"``.  The package imports neither jax nor
+kernel-split profiler's two kernels beside it (``ops/kernel_split.py``).
+Every generation mode and sampling strategy of the JAX package runs, and
+so does the ground-truth-only oracle.  The entry points run on the card
+unless the caller passes ``device="cpu"``.  The package imports neither jax nor
 ``mfcd_tpu``; kernels are built with ``nvcc`` at first use.
 """
 
 from mfcd_tpu_torch import backend  # noqa: F401  (precision pin)
 from mfcd_tpu_torch.sweep.batched import parameter_scan_fast
 from mfcd_tpu_torch.sweep.engine import parameter_scan, run_experiment
+from mfcd_tpu_torch.sweep.ground_truth import (evaluate_ground_truth,
+                                               parameter_scan_ground_truth)
 
-__all__ = ["parameter_scan", "parameter_scan_fast", "run_experiment"]
+__all__ = ["evaluate_ground_truth", "parameter_scan", "parameter_scan_fast",
+           "parameter_scan_ground_truth", "run_experiment"]

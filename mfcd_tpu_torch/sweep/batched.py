@@ -50,6 +50,11 @@ _OVERDRAW_BYTES = 128    # candidates, int64 draws and keys, hash slots
 _ATTEMPT_BYTES = 96      # user_similarity outputs and split ranks per attempt
 _US_POS_BYTES = 26       # per (rank, attempt, top-set position) of a block
 _US_RANK_BYTES = 40      # per (rank, attempt): cascade slots, tags, masks
+_ADJ_BYTES = 5           # graph, social: per n x n entry, bool + float32 copy
+_SVD_F64_NM_PLANES = 3   # svd: float64 scores, the solver's copy, workspace
+_CLUSTERED_NM_PLANES = 5 # clustered: k-means temporaries over [m, n] items
+                         # and the shifted copies of X
+_GMM_POINT_BYTES = 64    # gmm: per (component, point, dim) of the EM step
 CPU_BUDGET_BYTES = 2e9   # the JAX package's working budget, for the CPU
 
 
@@ -150,12 +155,36 @@ def sampler_bytes(cfg: RunConfig, t: int) -> int:
                if extra else 0))
 
 
+def generation_bytes(cfg: RunConfig) -> int:
+    """Estimated device bytes of one run's generator beyond X itself:
+    graph and social hold an n x n adjacency (bool and a float32 copy),
+    which the n x m planes do not cover where n >> m; svd the n x m
+    scores and, in float64 (the card's precision for it), their copy, the
+    solver's copy and workspace, U and V^T; clustered its
+    k-means over the [m, n] item vectors and the shifted copies of X; gmm
+    its EM step per component, point and dimension.  The other modes work
+    on n x d and m x d factors."""
+    n, m, d = cfg.n, cfg.m, cfg.d
+    if cfg.generation in ("graph", "social"):
+        return n * n * _ADJ_BYTES
+    if cfg.generation == "svd":
+        k = min(n, m)
+        return 4 * n * m + 8 * (_SVD_F64_NM_PLANES * n * m + (n + m) * k
+                                + k)
+    if cfg.generation == "clustered":
+        return 4 * _CLUSTERED_NM_PLANES * n * m
+    if cfg.generation == "gmm":
+        return _GMM_POINT_BYTES * 5 * (n + m) * d
+    return 0
+
+
 def run_bytes(cfg: RunConfig, t_cap: Optional[int] = None) -> int:
     """Estimated device bytes of one run of ``cfg`` at capacity ``t_cap``.
 
     The port allocates, per run: the n x m planes of the generator and the
     metric block (X, U V^T, centred copies, sort indices and ranks);
-    the training split, its packed stream and the epoch shuffle's int64
+    the generator's own working set (:func:`generation_bytes`); the
+    training split, its packed stream and the epoch shuffle's int64
     temporaries per padded row; the validation and test splits; and the
     sample stage's working set (:func:`sampler_bytes`)."""
     sh = cfg.shapes()
@@ -163,7 +192,7 @@ def run_bytes(cfg: RunConfig, t_cap: Optional[int] = None) -> int:
     train_rows = int(TRAIN_RATIO * t) * (1 if cfg.soft_label else cfg.K)
     eval_raw = ((t - int(TRAIN_RATIO * t)) * cfg.K
                 + sh.extra_test_triplets * cfg.K)
-    return (cfg.n * cfg.m * 4 * _NM_PLANES
+    return (cfg.n * cfg.m * 4 * _NM_PLANES + generation_bytes(cfg)
             + _next_pow2(max(train_rows, 1)) * _TRAIN_ROW_BYTES
             + _next_pow2(max(eval_raw, 1)) * _EVAL_ROW_BYTES
             + sampler_bytes(cfg, t))

@@ -1,7 +1,7 @@
 """The CUDA kernels vs their plain PyTorch versions, on a card: the fused
 epoch (K1) at every launch shape, R and batch size it takes, its five stage
-variants (P1) and the factored-layout epoch (P2); and every sampler on the
-card against the CPU.
+variants (P1) and the factored-layout epoch (P2); and every sampler, every
+generator and the ground-truth oracle on the card against the CPU.
 
 Imports neither jax nor ``mfcd_tpu``, so it runs on a machine with the card
 and without jax::
@@ -17,6 +17,8 @@ check of each kept stage's work) agree to rtol 1e-5 / atol 1e-6.  K1 has
 no float atomics: two launches, and launches at different launch shapes
 (cluster sizes, one 512-thread block per run, packed), agree bit for bit.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -330,3 +332,79 @@ def test_sampler_on_the_card_matches_the_cpu(strategy):
         for f in ("train_count", "val_count", "test_count"):
             p, q = int(getattr(card, f)[r]), int(getattr(cpu, f)[r])
             assert abs(p - q) <= 0.005 * max(q, 1), f
+
+
+GENERATIONS = ("low_rank", "clustered", "structured", "svd", "correlated",
+               "graph", "social", "temporal", "hierarchical", "gmm")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", GENERATIONS)
+def test_generator_on_the_card_matches_the_cpu(mode):
+    """``generate_x`` on the card and on the CPU from the same keys (n = 60,
+    m = 80, d = 3, R = 2), within ``chip_smoke.py`` [7]'s bound of 1e-4 x
+    max|X| + 1e-6; svd's singular vectors up to their signs within its
+    conditioning bound, and X where no mode's sign flipped; clustered and
+    gmm where every label agrees (at least 99 % of them must)."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.genx import clusters, generate_x, generators
+
+    dev = _card()
+    n, m, d = 60, 80, 3
+    keys = lambda dv: prng.fold_in(prng.key(7, device=dv),
+                                   torch.arange(2, device=dv))
+    kc, kp = keys(dev), keys(torch.device("cpu"))
+    card = generate_x(kc, n, m, d, mode).cpu()
+    cpu = generate_x(kp, n, m, d, mode)
+    assert card.shape == (2, n, m) and torch.isfinite(card).all()
+    compare = True
+    if mode == "svd":
+        # Each top singular vector up to its sign, within 10 eps s_1 / gap
+        # of the CPU's (gap: from s_k to its nearest neighbour).
+        uc = generators.svd_modes(kc, n, m, d)[0].cpu()
+        up, sp, _ = generators.svd_modes(kp, n, m, d)
+        sign = torch.sign(torch.sum(uc * up, dim=-2, keepdim=True))
+        s = sp.double()
+        above = torch.cat([torch.full_like(s[:, :1], math.inf),
+                           s[:, :d - 1] - s[:, 1:d]], dim=-1)
+        gap = torch.minimum(above, s[:, :d] - s[:, 1:d + 1])
+        err = (uc * sign - up).norm(dim=-2).double()
+        assert (err <= 10 * 2.0 ** -24 * s[:, :1] / gap).all()
+        compare = bool((sign > 0).all())
+    elif mode in ("clustered", "gmm"):
+        def labels(k):     # the items' k-means, or their GMM fit
+            if mode == "clustered":
+                kx, kk = prng.split(k).unbind(-2)
+                x = generators.generate_base(kx, n, m, d)
+                return clusters.kmeans(kk, x.transpose(-1, -2), 5)[0].cpu()
+            ks = prng.split(k, 4)
+            return clusters.gmm_fit_predict(
+                ks[..., 3, :], prng.normal(ks[..., 1, :], (m, d)), 5)[0].cpu()
+        share = float((labels(kc) == labels(kp)).double().mean())
+        assert share >= 0.99
+        compare = share == 1.0
+    if compare:
+        err = float((card - cpu).abs().max())
+        assert err <= 1e-4 * float(cpu.abs().max()) + 1e-6, err
+
+
+@pytest.mark.cuda
+def test_ground_truth_on_the_card_matches_the_cpu():
+    """``parameter_scan_ground_truth`` with ``device=None`` runs on the card
+    and agrees with the CPU within ``chip_smoke.py``'s 2e-3; no epoch
+    kernel launch."""
+    import mfcd_tpu_torch
+
+    _card()
+    grid = dict(n=60, m=80, d=2, p=[0.1, 0.3], s=[1.0, 5.0], reps=2,
+                generation=["base", "gmm"])
+    before = K.EPOCH_LAUNCHES
+    card = mfcd_tpu_torch.parameter_scan_ground_truth(**grid)
+    cpu = mfcd_tpu_torch.parameter_scan_ground_truth(device="cpu", **grid)
+    assert K.EPOCH_LAUNCHES == before
+    assert len(card) == len(cpu) == 8
+    for a, b in zip(card, cpu):
+        assert a["params"] == b["params"]
+        for k in ("gt_loss", "gt_accuracy"):
+            np.testing.assert_allclose(a["results"][k], b["results"][k],
+                                       rtol=2e-3, atol=2e-3)

@@ -130,16 +130,17 @@ def test_forward_prob_matches_jax():
 
 
 def test_unported_modes_raise():
-    """An unknown strategy raises ValueError, as in JAX; every strategy of
-    ``mfcd_tpu.sampling.STRATEGIES`` is ported, and an M14 generator still
-    raises."""
+    """An unknown strategy or generation mode raises ValueError, as in JAX;
+    every strategy of ``mfcd_tpu.sampling.STRATEGIES`` and every mode of
+    ``mfcd_tpu.genx.GENERATION_MODES`` is ported."""
+    from mfcd_tpu.genx import GENERATION_MODES as JMODES
     from mfcd_tpu.sampling import STRATEGIES as JSTRATEGIES
+    from mfcd_tpu_torch.genx import GENERATION_MODES
     from mfcd_tpu_torch.sampling import STRATEGIES
 
     key = prng.key(0)[None]
-    with pytest.raises(NotImplementedError, match="M14"):
-        tgenerate_x(key, N, M, D, "low_rank")
-    with pytest.raises(ValueError):
+    assert GENERATION_MODES == JMODES
+    with pytest.raises(ValueError, match="Unknown generation"):
         tgenerate_x(key, N, M, D, "nope")
     st = trng.rep_streams(key)
     x = tgenerate_x(st["x_gen"], N, M, D, "base")
