@@ -13,22 +13,25 @@ Phases, each of which raises on failure (nothing is caught and continued):
    names one row of U and alternates two rows of V), at the profiler's
    R = 8, at R = 120 (``bench.py``'s sweep) and at the large R that
    ``parameter_scan_fast`` chunks the reference grid into (the last two
-   over 64 batches); two launches bit-equal, and the chosen launch shape
-   bit-equal to one 512-thread block per run and to the packed kernel;
-   then at R = 4, 8, 120 and the large R, on the adversarial stream and at
+   over 64 batches); two launches bit-equal, the chosen launch shape
+   bit-equal to one 512-thread block per run and to the packed kernel,
+   and, in pack "full", P1's ``full`` (K1's code built in
+   ``epoch_variants.cu``) bit-equal to K1 at the chosen shape; then at
+   R = 4, 8, 120 and the large R, on the adversarial stream and at
    bs = 1024 (n = 20, m = 25, 64 steps), its time per epoch (the card's
-   queue kept full) beside P1's ``full`` (the previous design; bs <= 512;
-   K1 must be no slower) and itself at the other two launch shapes, the
-   plain version's time, and the bound;
-3b. kernel split: the five stage variants of the epoch (P1: loss, state
-   and the ``alive`` sums that show each kept stage's work) and the
+   queue kept full) beside P1's ``full`` and itself at the other two
+   launch shapes, the plain version's time, and the bound;
+3b. kernel split: the five stage variants of K1 (P1: loss, state and the
+   ``alive`` sums that show each kept stage's work) and the
    factored-layout epoch (P2) against their plain versions at the
    profiler's shape (R = 8, n = m = 1000, d = 2, bs = 64, 1,250 batches,
-   pack "full"), P2 against the fused epoch, then the profiler's path
+   pack "full"), each at its chosen launch shape, at C = 1 and packed,
+   state and loss bit-equal across the three; P2 against the fused epoch;
+   then the profiler's path
    (``mfcd_tpu_torch.scripts.profile_kernel_split.profile``) with the
    launch counts read around it: each kernel's time, K1's beside
    ``full``'s, the per-step stage split, the plain versions' times and the
-   bounds;
+   bounds; and the split again with every kernel forced to C = 1;
 4. main path: ``parameter_scan`` at the canonical configuration
    (n = m = 1000, d = 2, p = 0.2, s = 5, 30 epochs, reps = 4) on the card,
    with the kernel launch count read around it;
@@ -375,7 +378,9 @@ def bit_equal(a, b) -> bool:
 
 def k1_launch_checks(inp, label):
     """Two launches at the chosen launch shape, one at one 512-thread block
-    per run and one packed, on the same inputs: all four bit-equal."""
+    per run and one packed, on the same inputs: all four bit-equal; in pack
+    "full", P1's ``full`` at the chosen shape bit-equal to them."""
+    from mfcd_tpu_torch.ops import kernel_split as ks
     from mfcd_tpu_torch.ops import kernels
 
     args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"], inp["count"])
@@ -390,15 +395,24 @@ def k1_launch_checks(inp, label):
     for k, out in zip(shapes[1:], outs[1:]):
         if not bit_equal(outs[0], out):
             fail(f"{label}: launch shape C={c} and C={k} differ")
+    said = ""
+    if inp["pack"][0] == "full":
+        full = ks._train_epoch_variant(clone_state(inp["state"]), *args,
+                                       pack=inp["pack"],
+                                       stages=ks.VARIANTS["full"], cluster=c)
+        torch.cuda.synchronize()
+        if not bit_equal(outs[0], full[:2]):
+            fail(f"{label}: P1 full and K1 differ at C={c}")
+        said = f"; P1 full at C={c} bit-equal to K1"
     log(f"  {label}: two launches at C={c}, one at C=1 and one packed "
-        f"(C={kernels.PACKED}) bit-equal")
+        f"(C={kernels.PACKED}) bit-equal{said}")
 
 
 def k1_timing(inp, label):
     """K1 at the chosen launch shape, at one 512-thread block per run
-    (C = 1), packed, and P1's ``full`` (the previous design, where bs <=
-    512) on the same inputs, in turns; returns the entry.  Fails if K1 is
-    slower than ``full``."""
+    (C = 1), packed, and P1's ``full`` (K1's code built in
+    ``epoch_variants.cu``, at its own chosen shape) on the same inputs, in
+    turns; returns the entry."""
     from mfcd_tpu_torch.ops import kernel_split as ks
     from mfcd_tpu_torch.ops import kernels
     from mfcd_tpu_torch.scripts.profile_kernel_split import median_ms
@@ -411,16 +425,14 @@ def k1_timing(inp, label):
     idx = inp["count"].device.index or 0
     k1 = lambda k: (lambda st: kernels._train_epoch(
         st, *args, pack=inp["pack"], cluster=k))
-    calls = {"k1": k1(c), "k1_c1": k1(1), "k1_packed": k1(kernels.PACKED)}
-    if bs <= ks.MAX_BATCH:
-        calls["full"] = lambda st: ks.train_epoch_variant(
-            st, *args, pack=inp["pack"], stages=ks.VARIANTS["full"])
+    calls = {"k1": k1(c), "k1_c1": k1(1), "k1_packed": k1(kernels.PACKED),
+             "full": lambda st: ks.train_epoch_variant(
+                 st, *args, pack=inp["pack"], stages=ks.VARIANTS["full"])}
     times = {k: [] for k in calls}
     for name in list(calls) + list(calls)[::-1]:
         times[name].append(median_ms(calls[name], inp["state"], warmup=1,
                                      reps=5))
     ms = {k: float(np.median(v)) for k, v in times.items()}
-    full_ms = ms.get("full")
     executed = executed_steps(inp, bs) / r
     occ = lambda k: kernels.epoch_occupancy(n, m, d, bs, k, idx)[0]
     entry = dict(label=label, r=r, bs=bs, cluster=c,
@@ -428,22 +440,17 @@ def k1_timing(inp, label):
                  blocks_per_sm_c1=occ(1),
                  blocks_per_sm_packed=occ(kernels.PACKED),
                  ms=ms["k1"], ms_c1=ms["k1_c1"], ms_packed=ms["k1_packed"],
-                 full_ms=full_ms, us_per_step=ms["k1"] * 1e3 / executed,
+                 full_ms=ms["full"], us_per_step=ms["k1"] * 1e3 / executed,
                  runs_per_s=r / ms["k1"] * 1e3,
-                 full_runs_per_s=None if full_ms is None
-                 else r / full_ms * 1e3)
+                 full_runs_per_s=r / ms["full"] * 1e3)
     log(f"[3] K1 {label} R={r} bs={bs}: C={c} ({entry['threads']} threads, "
         f"{entry['blocks_per_sm']} blocks per SM) {ms['k1']:.4f} ms "
         f"({entry['us_per_step']:.4f} us/step, {entry['runs_per_s']:.1f} "
         f"runs/s); C=1 ({entry['blocks_per_sm_c1']} per SM) "
         f"{ms['k1_c1']:.4f} ms; packed ({entry['blocks_per_sm_packed']} per "
-        f"SM) {ms['k1_packed']:.4f} ms; P1 full "
-        + ("n/a (bs > 512)" if full_ms is None else
-           f"{full_ms:.4f} ms ({entry['full_runs_per_s']:.1f} runs/s)")
-        + "; readings " + json.dumps(times))
-    if full_ms is not None and ms["k1"] > full_ms:
-        fail(f"K1 {label} R={r}: {ms['k1']:.4f} ms, slower than P1 full "
-             f"{full_ms:.4f} ms")
+        f"SM) {ms['k1_packed']:.4f} ms; P1 full {ms['full']:.4f} ms "
+        f"({entry['full_runs_per_s']:.1f} runs/s); readings "
+        + json.dumps(times))
     return entry
 
 
@@ -512,10 +519,38 @@ def k1_phase(dev, n, m, d, bs, nb):
     return max_err, canon, timings
 
 
+def split_shapes_check(inp, label, kernel, plain, state, cluster):
+    """[3b] One P1 / P2 kernel against its plain version on the same inputs
+    at its chosen launch shape, at C = 1 and packed (each within the
+    bound), state and loss bit-equal across the three; returns (max |diff|,
+    the plain call's ms)."""
+    from mfcd_tpu_torch.ops import kernels
+
+    args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"], inp["count"])
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(clone_state(state), *args, pack=inp["pack"])
+    stop.record()
+    shapes = (cluster, 1, kernels.PACKED)
+    outs = [kernel(clone_state(state), *args, pack=inp["pack"], cluster=k)
+            for k in shapes]
+    torch.cuda.synchronize()
+    worst = max(check_close(want, got, f"{label} C={k}")
+                for k, got in zip(shapes, outs))
+    for k, out in zip(shapes[1:], outs[1:]):
+        if not bit_equal(outs[0], out[:2]):
+            fail(f"{label}: state or loss at C={cluster} and C={k} differ")
+    log(f"  {label}: state and loss bit-equal at C={cluster}, C=1 and "
+        f"packed")
+    return worst, start.elapsed_time(stop)
+
+
 def kernel_split_phase(dev, n, m, d, bs):
     """[3b] P1's variants and P2 against their plain versions at the
-    profiler's shape, P2 against the fused epoch, then the profiler's path
-    with its launch counts; returns the ``kernels`` entries."""
+    profiler's shape and three launch shapes, P2 against the fused epoch,
+    then the profiler's path with its launch counts, and the split at
+    C = 1; returns the ``kernels`` entries."""
     import functools
 
     from mfcd_tpu_torch.ops import kernel_split as ks
@@ -523,28 +558,33 @@ def kernel_split_phase(dev, n, m, d, bs):
     from mfcd_tpu_torch.scripts import profile_kernel_split as pks
 
     nb = -(-pks.ROWS // bs)
-    inp = make_epoch_inputs(3, pks.R, n, m, d, bs, nb, [pks.ROWS] * pks.R,
-                            [1e-3, 3e-3] * (pks.R // 2), "full", dev)
+    r = pks.R
+    inp = make_epoch_inputs(3, r, n, m, d, bs, nb, [pks.ROWS] * r,
+                            [1e-3, 3e-3] * (r // 2), "full", dev)
     errs, plain = {}, {}
     for name, stages in ks.VARIANTS.items():
-        errs[name], plain[name], _ = compare_epoch(
-            inp, f"P1 {name} R={pks.R}",
-            kernel=functools.partial(ks.train_epoch_variant, stages=stages),
-            plain=functools.partial(ks.train_epoch_variant_reference,
-                                    stages=stages))
+        c = kernels.cluster_size(r, n, m, d, bs, dev)
+        errs[name], plain[name] = split_shapes_check(
+            inp, f"P1 {name} R={r}",
+            functools.partial(ks._train_epoch_variant, stages=stages),
+            functools.partial(ks.train_epoch_variant_reference,
+                              stages=stages), inp["state"], c)
     state_f = type(inp["state"])(*(ks.to_factored_layout(a)
                                    for a in inp["state"]))
-    errs["factored"], plain["factored"], (fac_state, fac_loss) = (
-        compare_epoch(inp, f"P2 factored R={pks.R}",
-                      kernel=ks.train_epoch_factored,
-                      plain=ks.train_epoch_factored_reference, state=state_f))
-    k1 = kernels.train_epoch(clone_state(inp["state"]), inp["stream"],
-                             inp["lr"], inp["wd"], inp["step0"],
-                             inp["count"], pack=inp["pack"])
+    rows = ks.FACTORED_ROWS
+    c = kernels.cluster_size(r, rows, rows, d, bs, dev)
+    errs["factored"], plain["factored"] = split_shapes_check(
+        inp, f"P2 factored R={r}", ks._train_epoch_factored,
+        ks.train_epoch_factored_reference, state_f, c)
+    args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"], inp["count"])
+    fac_state, fac_loss = ks.train_epoch_factored(clone_state(state_f), *args,
+                                                  pack=inp["pack"])
+    k1 = kernels.train_epoch(clone_state(inp["state"]), *args,
+                             pack=inp["pack"])
     torch.cuda.synchronize()
     check_close(k1, (tuple(ks.from_factored_layout(a, d, k) for a, k in
                            zip(fac_state, (n, m, n, n, m, m))), fac_loss),
-                f"P2 vs fused epoch R={pks.R}")
+                f"P2 vs fused epoch R={r}")
 
     # The profiler's own path, as `python3 -m
     # mfcd_tpu_torch.scripts.profile_kernel_split` runs it.
@@ -559,21 +599,27 @@ def kernel_split_phase(dev, n, m, d, bs):
     for name, count in launches.items():
         if count == 0:
             fail(f"the profiler launched {name} no time")
-    if not prof["variants"]["full_factored"]["allclose_vs_full"]:
-        fail("profiler: P2's final U is not allclose to full's")
-    v = prof["variants"]
-    log(f"[3b] kernel split R={pks.R}, {nb} steps: "
-        + ", ".join(f"{k} {v[k]['ms_per_epoch']:.4f} ms "
-                    f"({v[k]['us_per_step']:.4f} us/step)" for k in v)
-        + "; stage deltas us/step: "
-        + ", ".join(f"{k} {x:.4f}" for k, x in
-                    prof["stage_deltas_us"].items())
-        + f"; P2 max|U - full U| "
-        f"{v['full_factored']['max_delta_vs_full']:.3g}; K1 "
-        f"{prof['k1']['ms_per_epoch']:.4f} ms "
-        f"({prof['k1']['us_per_step']:.4f} us/step), full - K1 "
-        f"{prof['k1']['full_minus_k1_us_per_step']:.4f} us/step")
+    prof_c1 = pks.profile(prof_inp, cluster=1)
+    for label, out in (("chosen shapes", prof), ("C = 1", prof_c1)):
+        if not out["variants"]["full_factored"]["allclose_vs_full"]:
+            fail(f"profiler ({label}): P2's final U is not allclose to "
+                 f"full's")
+        v = out["variants"]
+        log(f"[3b] kernel split R={r}, {nb} steps, {label}: "
+            + ", ".join(f"{k} C={v[k]['cluster']} "
+                        f"{v[k]['ms_per_epoch']:.4f} ms "
+                        f"({v[k]['us_per_step']:.4f} us/step)" for k in v)
+            + "; stage deltas us/step: "
+            + ", ".join(f"{k} {x:.4f}" for k, x in
+                        out["stage_deltas_us"].items())
+            + f"; P2 max|U - full U| "
+            f"{v['full_factored']['max_delta_vs_full']:.3g}; K1 C="
+            f"{out['k1']['cluster']} {out['k1']['ms_per_epoch']:.4f} ms "
+            f"({out['k1']['us_per_step']:.4f} us/step), full - K1 "
+            f"{out['k1']['full_minus_k1_us_per_step']:.4f} us/step")
+    log("[3b] split JSON: " + json.dumps({"chosen": prof, "c1": prof_c1}))
 
+    v = prof["variants"]
     entries = []
     for name in ks.VARIANTS:
         b, by = variant_bound_ms(prof_inp, name, n, m, d, bs)
@@ -583,7 +629,8 @@ def kernel_split_phase(dev, n, m, d, bs):
             replaces="scripts/profile_kernel_split.py:64",
             launches=launches[name], max_abs_err=errs[name],
             ms=v[name]["ms_per_epoch"], plain_ms=plain[name], bound_ms=b,
-            bound_by=by, library_ms=None))
+            bound_by=by, library_ms=None, cluster=v[name]["cluster"],
+            ms_c1=prof_c1["variants"][name]["ms_per_epoch"]))
         log(f"  P1 {name}: plain {plain[name]:.2f} ms, bound {b:.6f} ms "
             f"({by}), {launches[name]} launches")
     b, by = factored_bound_ms(prof_inp, d, bs)
@@ -593,7 +640,9 @@ def kernel_split_phase(dev, n, m, d, bs):
         replaces="scripts/profile_kernel_split.py:329",
         launches=launches["factored"], max_abs_err=errs["factored"],
         ms=v["full_factored"]["ms_per_epoch"], plain_ms=plain["factored"],
-        bound_ms=b, bound_by=by, library_ms=None))
+        bound_ms=b, bound_by=by, library_ms=None,
+        cluster=v["full_factored"]["cluster"],
+        ms_c1=prof_c1["variants"]["full_factored"]["ms_per_epoch"]))
     log(f"  P2 factored: plain {plain['factored']:.2f} ms, bound {b:.6f} ms "
         f"({by}), {launches['factored']} launches")
     return entries

@@ -4,7 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  Builds land in
 ``mfcd_tpu_torch/_build/`` keyed on a hash of the source and the flags, so
 the first call in a fresh checkout builds and later calls reuse the
-library.  Only the repository's own sources are compiled.
+library.  The hash covers the headers of ``csrc/`` a source includes
+(``#include "..."``), so an edit to a shared header rebuilds every source
+that includes it.  Only the repository's own sources are compiled.
 
 ``--fmad=false`` keeps every multiply and add rounding on its own, as the
 plain PyTorch versions' separate operations do, so a kernel and its plain
@@ -17,6 +19,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,9 +51,32 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _local_files(src: str) -> list:
+    """``src`` and every header it includes by quoted name from its own
+    directory, directly or through another such header, each once."""
+    files, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for name in _INCLUDE.findall(text):
+            header = os.path.join(os.path.dirname(src), name.decode())
+            if os.path.exists(header):
+                todo.append(header)
+    return files
+
+
 def _target(src: str) -> str:
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _local_files(src):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     name = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 

@@ -17,8 +17,14 @@ layout the canonical bucket uses.
   (``_factored_kernel``), with V's gradient summed as the i-rows' sum plus
   the j-rows' sum.
 
-Both kernels are instantiations of one template in
-``ops/csrc/epoch_variants.cu``.
+Both kernels are K1 itself: the template of ``ops/csrc/epoch_body.cuh``
+that ``epoch_kernel.cu`` instantiates at the full stage set, instantiated
+by ``ops/csrc/epoch_variants.cu`` at every stage set (``full`` is K1's
+code, built again) and at the full one over the factored layout.  So the
+split is the split of the K1 the main path runs, at K1's launch shapes:
+the wrappers pick C as :func:`kernels.cluster_size` does, from each
+kernel's own occupancy query, and take any batch size whose shared memory
+fits one block (:func:`split_kernel_supported`).
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel for CUDA tensors; anything else raises.  Both take pack "full" only,
@@ -35,15 +41,18 @@ function, so ``oh_only`` and ``full`` stand for them.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from mfcd_tpu_torch.models.mf import gather_rows
 from mfcd_tpu_torch.ops import _build
-from mfcd_tpu_torch.ops.kernels import (SMEM_PER_BLOCK, EpochState,
-                                        _adam_consts, _check, _epoch_reference,
-                                        _forward, _index_add, _rows_first,
-                                        _unpack, _v_grad_interleaved)
+from mfcd_tpu_torch.ops.kernels import (CLUSTER_SIZES, PACKED, SMEM_PER_BLOCK,
+                                        EpochState, _adam_consts, _check,
+                                        _epoch_reference, _forward,
+                                        _index_add, _rows_first, _unpack,
+                                        _v_grad_interleaved, cluster_size,
+                                        epoch_smem_bytes)
 
 # Stage sets, in the order each adds one stage to the one before
 # (``profile_kernel_split.py:532-537``).
@@ -58,12 +67,13 @@ VARIANTS = {
 # else: one count per P1 variant (each is its own kernel instantiation).
 VARIANT_LAUNCHES = {name: 0 for name in VARIANTS}
 FACTORED_LAUNCHES = 0
+FACTORED = "factored"  # P2's name beside the variants' in the helpers below
 
 FACTORED_H = 8        # sublane rows of the factored layout
 FACTORED_L = 128      # lanes per row: table row = h * 128 + l
 FACTORED_ROWS = FACTORED_H * FACTORED_L
 ABLATION_SCALE = 1e-9  # weight of the keep-alive terms in the ablated losses
-MAX_BATCH = 512       # one batch row per thread of a 512-thread block
+WARP_SLOTS = 16       # alive partial sums, one per warp of a 512-thread block
 
 
 def _variant_name(stages) -> str:
@@ -81,12 +91,38 @@ def _check_pack(pack: tuple, who: str) -> None:
 
 
 def split_smem_bytes(n: int, m: int, d: int, batch_size: int,
-                     factored: bool = False) -> int:
-    """Shared memory of one P1 or P2 block (mirrors the .cu source): K1's
-    layout, a plane for V's j-row sums (P2), three per-row term planes and
-    two step sums."""
-    return 4 * (4 * (n + m) * d + (m * d if factored else 0)
-                + batch_size * (5 + 2 * d) + 3 * batch_size + 2)
+                     cluster: int = 1, kernel: str = "full") -> int:
+    """Shared memory of one block of P1 variant or P2 ``kernel`` at launch
+    shape ``cluster`` (mirrors the .cu source): K1's
+    :func:`epoch_smem_bytes`, plus, for an ablated variant, its term
+    planes: a third loss term per batch row by step parity and the alive
+    partial sums.  P2 is ``full`` over its tables' rows: call it at
+    ``FACTORED_ROWS``."""
+    extra = (0 if kernel in ("full", FACTORED)
+             else 4 * (2 * batch_size + WARP_SLOTS))
+    return epoch_smem_bytes(n, m, d, batch_size, cluster) + extra
+
+
+def split_kernel_supported(n: int, m: int, d: int, batch_size: int,
+                           kernel: str = "full") -> bool:
+    """Does one run of ``kernel`` fit a thread block?  At C = 1, as
+    :func:`kernels.epoch_kernel_supported`."""
+    return split_smem_bytes(n, m, d, batch_size, 1, kernel) <= SMEM_PER_BLOCK
+
+
+def _check_fits(who: str, n: int, m: int, d: int, batch_size: int,
+                kernel: str) -> None:
+    if not split_kernel_supported(n, m, d, batch_size, kernel):
+        raise ValueError(
+            f"{who}: n={n}, m={m}, d={d}, bs={batch_size} needs "
+            f"{split_smem_bytes(n, m, d, batch_size, 1, kernel)} B of shared "
+            f"memory in one block (limit {SMEM_PER_BLOCK})")
+
+
+def _check_cluster(who: str, cluster: Optional[int]) -> None:
+    if cluster is not None and cluster not in CLUSTER_SIZES + (PACKED,):
+        raise ValueError(f"{who}: cluster={cluster}, expected PACKED "
+                         f"({PACKED}) or one of {CLUSTER_SIZES}")
 
 
 def to_factored_layout(a: torch.Tensor) -> torch.Tensor:
@@ -243,15 +279,27 @@ def _check_epoch_args(state, stream, lr, wd, step0, count, state_shapes):
     _check("count", count, i32, (r,), dev)
 
 
-_COMMON_TAIL = [ctypes.c_float] * 7 + [ctypes.c_void_p]
+_COMMON_TAIL = [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch_tail(pack, b1, b2, eps, dev) -> list:
-    """The trailing pack, Adam and stream arguments of both C entries."""
+def _library():
+    name = "epoch_variants.cu"
+    _build.bind(name, "mfcd_train_epoch_factored",
+                [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + _COMMON_TAIL)
+    return _build.bind(
+        name, "mfcd_train_epoch_variant",
+        [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+        + _COMMON_TAIL)
+
+
+def _launch_tail(pack, b1, b2, eps, cluster, dev) -> list:
+    """The trailing pack, Adam, launch-shape and stream arguments of both C
+    entries."""
     _, bits_n, bits_m, bits_z, denom = pack
     b1f, omb1, b2f, omb2, log_b1, log_b2 = _adam_consts(b1, b2)
     return [bits_n, bits_m, bits_z, denom, b1f, omb1, b2f, omb2, float(eps),
-            log_b1, log_b2, torch.cuda.current_stream(dev).cuda_stream]
+            log_b1, log_b2, cluster,
+            torch.cuda.current_stream(dev).cuda_stream]
 
 
 def train_epoch_variant(state: EpochState, stream, lr, wd, step0, count,
@@ -263,10 +311,26 @@ def train_epoch_variant(state: EpochState, stream, lr, wd, step0, count,
 
     Arguments as :func:`mfcd_tpu_torch.ops.kernels.train_epoch`, pack
     "full" only.  CPU tensors run :func:`train_epoch_variant_reference`.
-    CUDA tensors launch ``epoch_variants.cu``; ``full`` updates the state in
-    place, the ablated variants leave it as it was.  Anything else raises."""
+    CUDA tensors launch ``epoch_variants.cu`` at K1's launch shape for
+    this shape (:func:`kernels.cluster_size`); ``full`` updates the state in
+    place, the ablated variants leave it as it was.  A shape whose block
+    does not fit raises, and so does anything else the kernel does not
+    take."""
+    return _train_epoch_variant(state, stream, lr, wd, step0, count, pack,
+                                stages, b1, b2, eps)
+
+
+def _train_epoch_variant(state: EpochState, stream, lr, wd, step0, count,
+                         pack: tuple, stages: tuple, b1: float = 0.9,
+                         b2: float = 0.999, eps: float = 1e-8,
+                         cluster: Optional[int] = None):
+    """:func:`train_epoch_variant` at launch shape ``cluster`` (PACKED or a
+    ``CLUSTER_SIZES`` entry; None: K1's, :func:`kernels.cluster_size`), for
+    the checks that every launch shape gives the same bits and for timing
+    the split at a forced shape."""
     name = _variant_name(stages)
     _check_pack(pack, "train_epoch_variant")
+    _check_cluster("train_epoch_variant", cluster)
     dev = state.u_t.device
     if dev.type == "cpu":
         return train_epoch_variant_reference(state, stream, lr, wd, step0,
@@ -279,22 +343,17 @@ def train_epoch_variant(state: EpochState, stream, lr, wd, step0, count,
     _check_epoch_args(state, stream, lr, wd, step0, count,
                       [(r, d, k) for k in (n, m, n, n, m, m)])
     num_batches, bs = stream[0].shape[1:]
-    smem = split_smem_bytes(n, m, d, bs)
-    if bs > MAX_BATCH or smem > SMEM_PER_BLOCK:
-        raise ValueError(f"train_epoch_variant: n={n}, m={m}, d={d}, bs={bs} "
-                         f"needs {smem} B of shared memory (limit "
-                         f"{SMEM_PER_BLOCK}) or bs > {MAX_BATCH}")
+    _check_fits("train_epoch_variant", n, m, d, bs, name)
+    if cluster is None:
+        cluster = cluster_size(r, n, m, d, bs, dev)
     loss = torch.empty(r, dtype=torch.float32, device=dev)
     alive = torch.zeros(r, dtype=torch.float32, device=dev)
-    lib = _build.bind(
-        "epoch_variants.cu", "mfcd_train_epoch_variant",
-        [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
-        + _COMMON_TAIL)
+    lib = _library()
     err = lib.mfcd_train_epoch_variant(
         list(VARIANTS).index(name), *(a.data_ptr() for a in state),
         stream[0].data_ptr(), lr.data_ptr(), wd.data_ptr(), step0.data_ptr(),
         count.data_ptr(), loss.data_ptr(), alive.data_ptr(), r, n, m, d,
-        num_batches, bs, *_launch_tail(pack, b1, b2, eps, dev))
+        num_batches, bs, *_launch_tail(pack, b1, b2, eps, cluster, dev))
     _build.raise_on(lib, err, f"epoch variant {name!r}")
     VARIANT_LAUNCHES[name] += 1
     return state, loss, alive
@@ -309,10 +368,20 @@ def train_epoch_factored(state_f: EpochState, stream, lr, wd, step0, count,
     Arguments as :func:`train_epoch_variant` without ``stages``, the six
     state tensors in the factored layout (:func:`to_factored_layout`).
     CPU tensors run :func:`train_epoch_factored_reference`; CUDA tensors
-    launch ``epoch_variants.cu``'s factored instantiation, which updates
-    the state in place."""
+    launch ``epoch_variants.cu``'s factored instantiation at K1's launch
+    shape for ``FACTORED_ROWS`` rows, which updates the state in place."""
+    return _train_epoch_factored(state_f, stream, lr, wd, step0, count,
+                                 pack, b1, b2, eps)
+
+
+def _train_epoch_factored(state_f: EpochState, stream, lr, wd, step0, count,
+                          pack: tuple, b1: float = 0.9, b2: float = 0.999,
+                          eps: float = 1e-8, cluster: Optional[int] = None):
+    """:func:`train_epoch_factored` at launch shape ``cluster``, as
+    :func:`_train_epoch_variant`."""
     global FACTORED_LAUNCHES
     _check_pack(pack, "train_epoch_factored")
+    _check_cluster("train_epoch_factored", cluster)
     dev = state_f.u_t.device
     if dev.type == "cpu":
         return train_epoch_factored_reference(state_f, stream, lr, wd, step0,
@@ -333,21 +402,17 @@ def train_epoch_factored(state_f: EpochState, stream, lr, wd, step0, count,
         raise ValueError(f"train_epoch_factored: {pack[1]}- and {pack[2]}-bit "
                          f"indices can exceed the layout's {FACTORED_ROWS} "
                          f"rows")
-    smem = split_smem_bytes(FACTORED_ROWS, FACTORED_ROWS, d, bs,
-                            factored=True)
-    if bs > MAX_BATCH or smem > SMEM_PER_BLOCK:
-        raise ValueError(f"train_epoch_factored: d={d}, bs={bs} needs {smem} "
-                         f"B of shared memory (limit {SMEM_PER_BLOCK}) or "
-                         f"bs > {MAX_BATCH}")
+    rows = FACTORED_ROWS
+    _check_fits("train_epoch_factored", rows, rows, d, bs, FACTORED)
+    if cluster is None:
+        cluster = cluster_size(r, rows, rows, d, bs, dev)
     loss = torch.empty(r, dtype=torch.float32, device=dev)
-    lib = _build.bind(
-        "epoch_variants.cu", "mfcd_train_epoch_factored",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + _COMMON_TAIL)
+    lib = _library()
     err = lib.mfcd_train_epoch_factored(
         *(a.data_ptr() for a in state_f), stream[0].data_ptr(),
         lr.data_ptr(), wd.data_ptr(), step0.data_ptr(), count.data_ptr(),
         loss.data_ptr(), r, h, d, num_batches, bs,
-        *_launch_tail(pack, b1, b2, eps, dev))
+        *_launch_tail(pack, b1, b2, eps, cluster, dev))
     _build.raise_on(lib, err, "factored epoch")
     FACTORED_LAUNCHES += 1
     return state_f, loss

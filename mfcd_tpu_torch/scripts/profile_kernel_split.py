@@ -1,4 +1,4 @@
-"""Per-stage cost split of the fused-epoch kernel, on one CUDA card.
+"""Per-stage cost split of the fused-epoch kernel K1, on one CUDA card.
 
     python3 -m mfcd_tpu_torch.scripts.profile_kernel_split
 
@@ -6,38 +6,46 @@ Counterpart of ``scripts/profile_kernel_split.py::main``.  At the canonical
 bench bucket (R = 8 runs: 2 configs x 4 reps, n = m = 1000, d = 2, 80,000
 train rows in batches of 64: 1,250 steps per epoch), with inputs drawn from
 a seed by numpy, it times one epoch of each stage variant of
-``ops/csrc/epoch_variants.cu`` (``loop_only`` ... ``full``), of the
-factored-layout epoch (P2, the same source) and of the fused epoch K1
-(``ops/csrc/epoch_kernel.cu``), which ``full`` stands for: the median of
-per-call CUDA-event times with the card's queue kept full (see
-:func:`median_ms`).  Differences between adjacent variants estimate each
-stage's cost per step.
+``ops/csrc/epoch_variants.cu`` (``loop_only`` ... ``full``: K1's own code
+with stages removed, ``full`` being K1's), of the factored-layout epoch
+(P2, the same source) and of K1 (``ops/csrc/epoch_kernel.cu``) itself:
+the median of per-call CUDA-event times with the card's queue kept full
+(see :func:`median_ms`).  Every kernel runs at K1's launch shape for the
+shape (C = 8 at R = 8 on an H100; P2's tables have 1,024 rows), or at
+the one :func:`profile`'s ``cluster`` forces.  Differences between adjacent
+variants estimate each stage's cost per step of K1, and they sum to
+K1's step: ``full`` and K1 differ only by noise.
 
-Prints a readable report on stderr and, as its last line, one JSON object:
-``variants`` (per variant: ``ms_per_epoch``, ``s_per_epoch``,
-``us_per_step`` = epoch / batches, the chain latency of one step, which
-compares across R because the runs go in parallel on R SMs, and
-``us_per_run_step`` = epoch / (R * batches), the JAX script's unit),
+Prints a readable report on stderr (each kernel's time beside its launch
+shape, and the card) and, as its last line, one JSON object: ``variants``
+(per variant: ``ms_per_epoch``, ``s_per_epoch``, ``us_per_step`` = epoch
+/ batches, the chain latency of one step, which compares across R
+because the runs go in parallel, ``us_per_run_step`` = epoch / (R *
+batches), the JAX script's unit, and ``cluster``, the launch shape),
 ``stage_deltas_us`` (from ``us_per_step``), ``k1`` (K1's entry and
-``full_minus_k1_us_per_step``), ``shape``, and ``card`` (the card's name
-and power limit from nvidia-smi).  ``full_factored`` carries
-``allclose_vs_full``: its final U against ``full``'s (rtol 1e-4, atol
-1e-6, the JAX script's test).  Exits non-zero without a card.
+``full_minus_k1_us_per_step``), ``shape`` (with ``cluster``, K1's launch
+shape), and ``card`` (the card's name and power limit from nvidia-smi).
+``full_factored`` carries ``allclose_vs_full``: its final U against
+``full``'s (rtol 1e-4, atol 1e-6, the JAX script's test).  Exits non-zero
+without a card.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
 
-from mfcd_tpu_torch.ops.kernel_split import (VARIANTS, from_factored_layout,
-                                             to_factored_layout,
-                                             train_epoch_factored,
-                                             train_epoch_variant)
-from mfcd_tpu_torch.ops.kernels import EpochState, train_epoch
+from mfcd_tpu_torch.ops import kernels
+from mfcd_tpu_torch.ops.kernel_split import (FACTORED_ROWS, VARIANTS,
+                                             _train_epoch_factored,
+                                             _train_epoch_variant,
+                                             from_factored_layout,
+                                             to_factored_layout)
+from mfcd_tpu_torch.ops.kernels import EpochState
 
 R, N, M, D, BS, ROWS = 8, 1000, 1000, 2, 64, 80_000
 ORDER = tuple(VARIANTS)   # each adds one stage to the one before
@@ -99,35 +107,48 @@ def median_ms(call, state: EpochState, warmup: int = WARMUP,
                             for a, b in zip(events, events[1:])]))
 
 
-def profile(inp: dict, warmup: int = WARMUP, reps: int = REPS) -> dict:
+def profile(inp: dict, warmup: int = WARMUP, reps: int = REPS,
+            cluster: Optional[int] = None) -> dict:
     """Time every variant, the factored epoch and K1 on ``inp`` (CUDA
-    tensors); returns the JSON-ready result (without ``card``)."""
+    tensors), each at the launch shape its wrapper chooses or at
+    ``cluster`` (PACKED or a ``kernels.CLUSTER_SIZES`` entry); returns the
+    JSON-ready result (without ``card``)."""
     r, num_batches, bs = inp["stream"][0].shape
     args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"], inp["count"])
     pack = inp["pack"]
+    d, n = inp["state"].u_t.shape[1:]
+    m = inp["state"].v_t.shape[2]
+    dev = inp["count"].device
 
-    def entry(ms):
+    def entry(ms, c):
         return {"ms_per_epoch": ms, "s_per_epoch": ms / 1e3,
                 "us_per_step": ms * 1e3 / num_batches,
-                "us_per_run_step": ms * 1e3 / (r * num_batches)}
+                "us_per_run_step": ms * 1e3 / (r * num_batches),
+                "cluster": c}
+
+    def shape(rows=None):  # the launch shape of K1 at this shape
+        if cluster is not None:
+            return cluster
+        return kernels.cluster_size(r, rows or n, rows or m, d, bs, dev)
 
     variants = {}
     for name in ORDER:
         stages = VARIANTS[name]
         variants[name] = entry(median_ms(
-            lambda st: train_epoch_variant(st, *args, pack=pack,
-                                           stages=stages),
-            inp["state"], warmup, reps))
+            lambda st: _train_epoch_variant(st, *args, pack=pack,
+                                            stages=stages, cluster=cluster),
+            inp["state"], warmup, reps), shape())
 
     state_f = EpochState(*(to_factored_layout(a) for a in inp["state"]))
-    factored = lambda st: train_epoch_factored(st, *args, pack=pack)
-    variants["full_factored"] = entry(median_ms(factored, state_f, warmup,
-                                                reps))
-    full_u = train_epoch_variant(_clone(inp["state"]), *args, pack=pack,
-                                 stages=VARIANTS["full"])[0].u_t
-    n = full_u.shape[2]
-    fac_u = from_factored_layout(factored(_clone(state_f))[0].u_t,
-                                 full_u.shape[1], n)
+    factored = lambda st: _train_epoch_factored(st, *args, pack=pack,
+                                                cluster=cluster)
+    variants["full_factored"] = entry(
+        median_ms(factored, state_f, warmup, reps),
+        shape(FACTORED_ROWS))
+    full_u = _train_epoch_variant(_clone(inp["state"]), *args, pack=pack,
+                                  stages=VARIANTS["full"],
+                                  cluster=cluster)[0].u_t
+    fac_u = from_factored_layout(factored(_clone(state_f))[0].u_t, d, n)
     variants["full_factored"]["allclose_vs_full"] = bool(
         torch.allclose(fac_u, full_u, rtol=1e-4, atol=1e-6))
     variants["full_factored"]["max_delta_vs_full"] = float(
@@ -135,14 +156,15 @@ def profile(inp: dict, warmup: int = WARMUP, reps: int = REPS) -> dict:
 
     deltas = {f"{b}-{a}": variants[b]["us_per_step"]
               - variants[a]["us_per_step"] for a, b in zip(ORDER, ORDER[1:])}
-    k1 = entry(median_ms(lambda st: train_epoch(st, *args, pack=pack),
-                         inp["state"], warmup, reps))
+    k1 = entry(median_ms(
+        lambda st: kernels._train_epoch(st, *args, pack=pack,
+                                        cluster=cluster),
+        inp["state"], warmup, reps), shape())
     k1["full_minus_k1_us_per_step"] = (variants["full"]["us_per_step"]
                                        - k1["us_per_step"])
     return {"variants": variants, "stage_deltas_us": deltas, "k1": k1,
-            "shape": {"r": r, "n": n, "m": inp["state"].v_t.shape[2],
-                      "d": full_u.shape[1], "bs": bs,
-                      "batches": num_batches}}
+            "shape": {"r": r, "n": n, "m": m, "d": d, "bs": bs,
+                      "batches": num_batches, "cluster": k1["cluster"]}}
 
 
 def main() -> int:
@@ -155,12 +177,12 @@ def main() -> int:
     out = profile(canonical_inputs(torch.device("cuda")))
     out["card"] = card
     for name, v in out["variants"].items():
-        print(f"{name:14s} {v['ms_per_epoch']:9.4f} ms/epoch  "
-              f"{v['us_per_step']:8.4f} us/step  "
+        print(f"{name:14s} C={v['cluster']:<2d} {v['ms_per_epoch']:9.4f} "
+              f"ms/epoch  {v['us_per_step']:8.4f} us/step  "
               f"{v['us_per_run_step']:8.4f} us/run-step", file=sys.stderr)
     k1 = out["k1"]
-    print(f"{'K1':14s} {k1['ms_per_epoch']:9.4f} ms/epoch  "
-          f"{k1['us_per_step']:8.4f} us/step  (full - K1 "
+    print(f"{'K1':14s} C={k1['cluster']:<2d} {k1['ms_per_epoch']:9.4f} "
+          f"ms/epoch  {k1['us_per_step']:8.4f} us/step  (full - K1 "
           f"{k1['full_minus_k1_us_per_step']:.4f} us/step)", file=sys.stderr)
     print(f"stage deltas (us/step): {out['stage_deltas_us']}; {card}",
           file=sys.stderr)

@@ -1,7 +1,9 @@
 """The CUDA kernels vs their plain PyTorch versions, on a card: the fused
 epoch (K1) at every launch shape, R and batch size it takes, its five stage
-variants (P1) and the factored-layout epoch (P2); and every sampler, every
-generator and the ground-truth oracle on the card against the CPU.
+variants (P1) and the factored-layout epoch (P2), which are K1's code and
+take the same launch shapes and batch sizes (P1's ``full`` bit-equal to
+K1); and every sampler, every generator and the ground-truth oracle on the
+card against the CPU.
 
 Imports neither jax nor ``mfcd_tpu``, so it runs on a machine with the card
 and without jax::
@@ -15,7 +17,9 @@ does, and sums gradient rows in batch order; the plain version's
 in another order, so state, loss and the P1 variants' ``alive`` sums (the
 check of each kept stage's work) agree to rtol 1e-5 / atol 1e-6.  K1 has
 no float atomics: two launches, and launches at different launch shapes
-(cluster sizes, one 512-thread block per run, packed), agree bit for bit.
+(cluster sizes, one 512-thread block per run, packed), agree bit for bit;
+so do P1's and P2's state and loss (their ``alive`` sums follow the row
+split, and are held by the bound).
 """
 
 import math
@@ -280,6 +284,114 @@ def test_split_kernels_reject_what_they_do_not_take():
                                pack=pack, stages=())
     with pytest.raises(ValueError, match="shape"):
         KS.train_epoch_factored(st, *args, pack=pack)
+
+
+SPLIT_KERNELS = list(KS.VARIANTS) + [KS.FACTORED]
+
+
+def _split_call(kernel, cluster=None):
+    """(kernel call at ``cluster``, plain version, launch count, layout) of
+    P1 variant or P2 ``kernel``."""
+    if kernel == KS.FACTORED:
+        return (lambda *a, **k: KS._train_epoch_factored(*a, **k,
+                                                         cluster=cluster),
+                KS.train_epoch_factored_reference,
+                lambda: KS.FACTORED_LAUNCHES, KS.to_factored_layout)
+    stages = KS.VARIANTS[kernel]
+    return (lambda *a, **k: KS._train_epoch_variant(*a, **k, stages=stages,
+                                                    cluster=cluster),
+            lambda *a, **k: KS.train_epoch_variant_reference(
+                *a, **k, stages=stages),
+            lambda: KS.VARIANT_LAUNCHES[kernel], lambda a: a)
+
+
+def _split_flat(state, args, pack, dev, kernel, cluster):
+    call, _, _, layout = _split_call(kernel, cluster)
+    return _flat(call(K.EpochState(*(layout(a) for a in epoch_state_from_jax(
+        *state, device=dev))), *args, pack=pack))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [K.PACKED, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("kernel", SPLIT_KERNELS)
+def test_split_kernel_at_every_cluster_size(kernel, cluster):
+    # Rows at the edges of each block's share (P2 over tables of 1,024
+    # rows, its layout's own): against the plain version; state and loss
+    # bit-equal to two launches at this shape, one block per run and
+    # packed.
+    dev = _card()
+    n, m = (KS.FACTORED_ROWS,) * 2 if kernel == KS.FACTORED else (N, M)
+    if cluster > 1 and K.epoch_occupancy(n, m, D, BS, cluster,
+                                         dev.index or 0)[1] == 0:
+        pytest.skip(f"the card does not schedule clusters of {cluster}")
+    state, args, pack = _inputs(16, n, m, D, BS, B, [70, 100, 128],
+                                [1e-2, 3e-2, 2e-2], "full", dev,
+                                rows=_edge_rows(n, m, max(cluster, 1)))
+    call, plain, launches, layout = _split_call(kernel, cluster)
+    got = _compare(state, args, pack, dev, kernel=call, plain=plain,
+                   launches=launches, layout=layout)
+    for other in (cluster, 1, K.PACKED):
+        again = _split_flat(state, args, pack, dev, kernel, other)
+        assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1:2],
+                                                     again[:7])), other
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SPLIT_KERNELS)
+@pytest.mark.parametrize("shape", ["small", "canonical"])
+def test_split_kernel_matches_plain_version_bs1024(kernel, shape):
+    # Batches of 1,024 rows, above the block's thread count.
+    dev = _card()
+    if shape == "small":
+        state, args, pack = _inputs(17, N, M, D, 1024, 2, [2048, 1500],
+                                    [1e-2, 3e-2], "full", dev)
+    else:
+        state, args, pack = _inputs(18, 1000, 1000, 2, 1024, 8,
+                                    [8192, 5000], [1e-3, 1e-2], "full", dev)
+    call, plain, launches, layout = _split_call(kernel)
+    _compare(state, args, pack, dev, kernel=call, plain=plain,
+             launches=launches, layout=layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SPLIT_KERNELS)
+def test_split_kernel_matches_plain_version_adversarial_stream(kernel):
+    # One U row and two alternating V rows, each named by every batch row:
+    # the long lists' scan (and P2's even-then-odd V sums).
+    dev = _card()
+
+    def rows(g, shape):
+        alt = np.arange(shape[-1]) % 2 == 0
+        i = np.broadcast_to(np.where(alt, 124, 125), shape)
+        return np.full(shape, 62), i, 249 - i
+    state, args, pack = _inputs(19, 1000, 1000, 2, 64, 16, [1024, 1000],
+                                [1e-3, 1e-2], "full", dev, rows=rows)
+    call, plain, launches, layout = _split_call(kernel)
+    _compare(state, args, pack, dev, kernel=call, plain=plain,
+             launches=launches, layout=layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [K.PACKED, 1, 8])
+@pytest.mark.parametrize("shape", ["small", "canonical"])
+def test_full_variant_is_k1_bit_for_bit(cluster, shape):
+    # P1's full is K1's code built again: the same bits at the same shape.
+    dev = _card()
+    if shape == "small":
+        state, args, pack = _inputs(20, N, M, D, BS, B, [70, 100],
+                                    [1e-2, 3e-2], "full", dev)
+    else:
+        state, args, pack = _inputs(21, 1000, 1000, 2, 64, 64, [4096, 2500],
+                                    [1e-3, 1e-2], "full", dev)
+    n, m, d, bs = (N, M, D, BS) if shape == "small" else (1000, 1000, 2, 64)
+    if cluster > 1 and K.epoch_occupancy(n, m, d, bs, cluster,
+                                         dev.index or 0)[1] == 0:
+        pytest.skip(f"the card does not schedule clusters of {cluster}")
+    k1 = _k1(state, args, pack, dev, cluster)
+    full = _split_flat(state, args, pack, dev, "full", cluster)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(k1, full[:7]))
+    assert not full[7].any()
 
 
 SAMPLERS = ("random", "proximity", "top_k", "svd", "margin", "variance",

@@ -213,7 +213,8 @@ def test_port_imports_neither_jax_nor_mfcd_tpu():
             "mfcd_tpu_torch/sampling/__init__.py",
             "mfcd_tpu_torch/genx/clusters.py",
             "mfcd_tpu_torch/genx/graphs.py",
-            "mfcd_tpu_torch/sweep/ground_truth.py"} <= names
+            "mfcd_tpu_torch/sweep/ground_truth.py",
+            "mfcd_tpu_torch/scripts/ab_epoch_kernel.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

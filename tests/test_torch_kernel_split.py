@@ -260,14 +260,106 @@ def test_wrappers_reject_other_devices():
                                 pack=PACK)
 
 
-def test_smem_formulas_at_the_profiler_shape():
-    # The first K1 design's layout (66,304 B: state, moments and a gradient
-    # plane, per-row scratch) plus the term planes and step sums; P2 at
-    # 1,024 rows plus its j-plane.
-    extra = 4 * (3 * 64 + 2)
-    assert KS.split_smem_bytes(1000, 1000, 2, 64) == 66_304 + extra
-    assert KS.split_smem_bytes(1024, 1024, 2, 64, factored=True) == (
-        67_840 + 4 * 1024 * 2 + extra)
+@pytest.mark.parametrize("cluster", [1, 8, 16, K.PACKED])
+@pytest.mark.parametrize("kernel", list(KS.VARIANTS) + [KS.FACTORED])
+def test_smem_formulas_at_the_profiler_shape(kernel, cluster):
+    # K1's block at the launch shape (P2's over 1,024 rows), plus, for an
+    # ablated variant, a third loss term per batch row by step parity and
+    # 16 alive partial sums.
+    rows = (KS.FACTORED_ROWS if kernel == KS.FACTORED else 1000)
+    extra = 0 if kernel in ("full", KS.FACTORED) else 4 * (2 * 64 + 16)
+    got = KS.split_smem_bytes(rows, rows, 2, 64, cluster, kernel)
+    assert got == K.epoch_smem_bytes(rows, rows, 2, 64, cluster) + extra
+    share = 2 * -(-rows // max(cluster, 1))
+    planes = 4 if cluster > 1 else 3
+    assert got == 8 * share + 4 * (planes * share * 2 + 64 * 18 + 2) + extra
+    if (kernel, cluster) == ("full", 1):  # K1's canonical block
+        assert got == 68_616
+
+
+@pytest.mark.parametrize("kernel", list(KS.VARIANTS) + [KS.FACTORED])
+def test_shared_memory_gate(kernel):
+    # Any batch size whose block fits (no one-row-per-thread cap): bs = 1024
+    # at the profiler's shape; a shape over the limit raises.
+    rows = KS.FACTORED_ROWS if kernel == KS.FACTORED else 1000
+    assert KS.split_kernel_supported(rows, rows, 2, 1024, kernel)
+    KS._check_fits("t", rows, rows, 2, 1024, kernel)
+    assert not KS.split_kernel_supported(10_000, 10_000, 2, 64, kernel)
+    with pytest.raises(ValueError, match="shared memory"):
+        KS._check_fits("t", 10_000, 10_000, 2, 64, kernel)
+    assert not hasattr(KS, "MAX_BATCH")
+
+
+@pytest.mark.parametrize("cluster", [3, 32, -1, 512])
+def test_private_cluster_rejects_other_shapes(cluster):
+    state, packed, sc = _inputs()
+    st = K.EpochState(*map(_t, state))
+    with pytest.raises(ValueError, match="cluster"):
+        KS._train_epoch_variant(st, (_t(packed),), *map(_t, sc), pack=PACK,
+                                stages=(), cluster=cluster)
+    fst = K.EpochState(*(KS.to_factored_layout(a) for a in st))
+    with pytest.raises(ValueError, match="cluster"):
+        KS._train_epoch_factored(fst, (_t(packed),), *map(_t, sc),
+                                 pack=PACK, cluster=cluster)
+
+
+@pytest.mark.parametrize("cluster", K.CLUSTER_SIZES + (K.PACKED,))
+def test_private_cluster_takes_the_plain_version_on_the_cpu(cluster):
+    state, packed, sc = _inputs(4)
+    before = dict(KS.VARIANT_LAUNCHES), KS.FACTORED_LAUNCHES
+    a = KS._train_epoch_variant(K.EpochState(*map(_t, state)), (_t(packed),),
+                                *map(_t, sc), pack=PACK,
+                                stages=KS.VARIANTS["no_adam"],
+                                cluster=cluster)
+    b = KS.train_epoch_variant(K.EpochState(*map(_t, state)), (_t(packed),),
+                               *map(_t, sc), pack=PACK,
+                               stages=KS.VARIANTS["no_adam"])
+    assert all(torch.equal(x, y) for x, y in zip(a[0] + a[1:], b[0] + b[1:]))
+    fst = K.EpochState(*(KS.to_factored_layout(_t(a)) for a in state))
+    f = KS._train_epoch_factored(fst, (_t(packed),), *map(_t, sc), pack=PACK,
+                                 cluster=cluster)
+    g = KS.train_epoch_factored(fst, (_t(packed),), *map(_t, sc), pack=PACK)
+    assert all(torch.equal(x, y) for x, y in zip(f[0] + f[1:], g[0] + g[1:]))
+    assert (dict(KS.VARIANT_LAUNCHES), KS.FACTORED_LAUNCHES) == before
+
+
+def _split_loop_sum(rows, i, j, vals):
+    """P2's V order from 0, one float32 add at a time: the i-entries in
+    batch order, the j-entries (subtracted) in batch order, then the two
+    sums added."""
+    r, bs, d = vals.shape
+    si = np.zeros((r, rows, d), np.float32)
+    sj = np.zeros((r, rows, d), np.float32)
+    for x in range(r):
+        for b in range(bs):
+            for k in range(d):
+                si[x, i[x, b], k] = np.float32(si[x, i[x, b], k]
+                                               + vals[x, b, k])
+        for b in range(bs):
+            for k in range(d):
+                sj[x, j[x, b], k] = np.float32(sj[x, j[x, b], k]
+                                               - vals[x, b, k])
+    return (si + sj).astype(np.float32)
+
+
+@pytest.mark.parametrize("stream", ["random", "adversarial"])
+def test_v_grad_split_sums_in_p2_order(stream):
+    # The order P2's kernel reproduces from its even (i) and odd (j) entry
+    # ids, bit for bit.
+    g = np.random.default_rng(8)
+    r, bs = 2, 64
+    if stream == "random":
+        i = g.integers(0, M, (r, bs))
+        j = (i + g.integers(1, M, (r, bs))) % M
+    else:  # V alternates rows 3 and 4 as i and j: each named 64 times
+        i = np.where(np.arange(bs) % 2 == 0, 3, 4)[None].repeat(r, 0)
+        j = 7 - i
+    vals = (g.standard_normal((r, bs, D)) * 10.0 ** g.integers(
+        -4, 2, (r, bs, 1))).astype(np.float32)
+    got = KS._v_grad_split(M, _t(i), _t(j), _t(vals)).numpy()
+    np.testing.assert_array_equal(got, _split_loop_sum(M, i, j, vals))
+    if stream == "adversarial":
+        assert np.count_nonzero(got.any(-1)) == 2 * r
 
 
 def test_profiler_inputs_and_no_card_exit(monkeypatch):

@@ -296,3 +296,30 @@ def test_cpu_tensors_take_the_plain_version():
     assert K.EPOCH_LAUNCHES == before
     for x, y in zip(a[0] + (a[1],), b[0] + (b[1],)):
         assert torch.equal(x, y)
+
+
+def test_build_target_follows_included_headers(tmp_path):
+    # The library's name hashes the source and every csrc/ header it
+    # includes: an edit to the shared header rebuilds both kernel sources,
+    # an edit to a header nothing includes rebuilds neither.  No nvcc.
+    import os
+    import shutil
+
+    from mfcd_tpu_torch.ops import _build
+
+    for name in os.listdir(_build.CSRC):
+        shutil.copy(os.path.join(_build.CSRC, name), tmp_path / name)
+    sources = sorted(str(p) for p in tmp_path.glob("*.cu"))
+    assert [os.path.basename(p) for p in sources] == ["epoch_kernel.cu",
+                                                      "epoch_variants.cu"]
+    for src in sources:
+        assert str(tmp_path / "epoch_body.cuh") in _build._local_files(src)
+    before = [_build._target(src) for src in sources]
+    (tmp_path / "unused.cuh").write_text("// included by nothing\n")
+    assert [_build._target(src) for src in sources] == before
+    with open(tmp_path / "epoch_body.cuh", "a") as f:
+        f.write("// touched\n")
+    after = [_build._target(src) for src in sources]
+    assert all(a != b for a, b in zip(before, after))
+    assert all(os.path.basename(a).startswith(os.path.basename(b)[:-len(
+        b.split("_")[-1])]) for a, b in zip(after, before))
