@@ -58,7 +58,17 @@ Phases, each of which raises on failure (nothing is caught and continued):
    memory per run under ``run_bytes``; (c) ``parameter_scan_ground_truth``
    on the card against the CPU (base over s in {1, 5} and p in {0.05,
    0.2}, and one gmm configuration), ``evaluate_ground_truth`` timed at
-   reps = 4, and no epoch kernel launch in (c).
+   reps = 4, and no epoch kernel launch in (c);
+8. the study's sweeps (``mfcd_tpu_torch.experiments.runs``) at n = m =
+   1000, their pickles in one temporary folder: (a) ``strategies_p_sweep``
+   for random on the fast path (notebook cell 18: 20 p values, s = 5, 30
+   epochs, reps = 1), 30 epoch kernel launches per chunk, the grid's params
+   in order, accuracy above 0.6 at p = 0.2; (b) the same grid on the
+   sequential path, its 23 keys within the card-vs-CPU bound of (a)'s;
+   (c) ``generation_s_sweep`` for gmm (10 s values), then the same call
+   again, which resumes: no launch, the pickle's bytes unchanged; (d)
+   ``gt_d_s_sweep`` (7 d x 3 s at p = 0.5, reps = 3), finite, no launch.
+   Per sweep: configurations, runs, wall, s/run, launches, peak memory.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -1192,6 +1202,166 @@ def ground_truth_phase():
         f"{np.mean(losses):.4f}); 0 epoch kernel launches")
 
 
+def _drive(fn, **kw):
+    """One sweep call on the card: (its return, K1 launches, chunks of
+    ``parameter_scan_fast``, wall s, peak device bytes)."""
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.sweep import batched
+
+    chunks = []
+    device_run = batched._run_bucket_device
+
+    def counted(*args, **kwargs):
+        chunks.append(1)
+        return device_run(*args, **kwargs)
+
+    batched._run_bucket_device = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.EPOCH_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.EPOCH_LAUNCHES
+    finally:
+        batched._run_bucket_device = device_run
+    return out, launches, len(chunks), wall, torch.cuda.max_memory_allocated()
+
+
+def _load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _check_entries(entries, label):
+    from mfcd_tpu_torch.core.results import validate_schema
+
+    for e in entries:
+        problems = validate_schema(e["results"])
+        if problems:
+            fail(f"{label} {e['params']}: schema {problems}")
+        if not all_finite(e["results"]):
+            fail(f"{label} {e['params']}: non-finite values")
+
+
+def study_phase(smi):
+    """[8] The study's sweeps (``mfcd_tpu_torch.experiments.runs``) at
+    full width: (a) ``strategies_p_sweep`` for random on the fast path
+    (notebook cell 18: 20 p values, s = 5, 30 epochs, reps = 1), (b) the
+    same grid on the sequential path against it, (c) ``generation_s_sweep``
+    for gmm (10 s values, one bucket) and its resume, which must launch
+    nothing and leave the pickle's bytes as they were, (d) ``gt_d_s_sweep``
+    (7 d x 3 s at p = 0.5, reps = 3), no K1 launch.  Returns the K1
+    launches of each call."""
+    from mfcd_tpu_torch.experiments import runs
+
+    t_all = time.perf_counter()
+    launches = {}
+    p_grid = np.round(np.logspace(-2, np.log10(0.2), 20), 4).tolist()
+
+    def report(label, what, configs, reps, wall, k1, peak):
+        n_runs = configs * reps
+        log(f"[{label}] {what}: {configs} configurations, {n_runs} runs in "
+            f"{wall:.3f} s ({wall / n_runs:.4f} s/run), {k1} K1 launches, "
+            f"peak device memory {peak / 1e6:.1f} MB; {smi}")
+
+    with tempfile.TemporaryDirectory(prefix="mfcd_chip_smoke_") as tmp:
+        # [8a] cell 18, random, fast path.
+        sp = os.path.join(tmp, "sp")
+        _, k1, chunks, wall, peak = _drive(
+            runs.strategies_p_sweep, out=sp, scale=1.0, reps=1,
+            strategies=("random",), fast=True)
+        fast = _load(f"{sp}_random.pkl")
+        if [e["params"]["p"] for e in fast] != p_grid or any(
+                (e["params"]["s"], e["params"]["n"], e["params"]["m"],
+                 e["params"]["strategy"]) != (5, 1000, 1000, "random")
+                for e in fast):
+            fail(f"[8a] params {[e['params'] for e in fast]}")
+        _check_entries(fast, "[8a]")
+        acc = float(np.mean(fast[-1]["results"]["accuracy"]))
+        if not acc > 0.6:
+            fail(f"[8a] accuracy {acc:.4f} at p = 0.2 is not above 0.6")
+        if not (k1 > 0 and k1 == 30 * chunks):
+            fail(f"[8a] {k1} K1 launches for {chunks} chunks, expected 30 "
+                 f"per chunk")
+        launches["8a"] = k1
+        report("8a", f"strategies_p_sweep random, fast, {chunks} chunks, "
+               f"accuracy {acc:.4f} at p = 0.2", len(fast), 1, wall, k1, peak)
+
+        # [8b] the same grid, sequential path, against [8a].
+        seq_prefix = os.path.join(tmp, "seq")
+        _, k1, _, wall, peak = _drive(
+            runs.strategies_p_sweep, out=seq_prefix, scale=1.0, reps=1,
+            strategies=("random",), fast=False)
+        seq = _load(f"{seq_prefix}_random.pkl")
+        if [e["params"] for e in seq] != [e["params"] for e in fast]:
+            fail("[8b] the sequential pickle's params differ from [8a]'s")
+        worst = {}
+        for a, b in zip(seq, fast):
+            for k, x in compare_results(a["results"], b["results"],
+                                        "[8b] sequential vs fast").items():
+                worst[k] = max(worst.get(k, 0.0), x)
+        if k1 != 30 * len(seq):
+            fail(f"[8b] {k1} K1 launches, expected 30 per configuration")
+        launches["8b"] = k1
+        top = max(worst.items(), key=lambda kv: kv[1])
+        report("8b", f"strategies_p_sweep random, sequential, 23 keys "
+               f"within rtol {CARD_CPU_RTOL}, atol {CARD_CPU_ATOL} of [8a] "
+               f"(largest |diff| {top[0]} {top[1]:.3g})", len(seq), 1, wall,
+               k1, peak)
+
+        # [8c] generation_s_sweep for gmm, then its resume.
+        gen = os.path.join(tmp, "gen")
+        _, k1, chunks, wall, peak = _drive(
+            runs.generation_s_sweep, out=gen, scale=1.0, reps=1,
+            generations=("gmm",), fast=True)
+        entries = _load(f"{gen}_gmm.pkl")
+        if len(entries) != 10:
+            fail(f"[8c] {len(entries)} entries, expected 10")
+        _check_entries(entries, "[8c]")
+        if not (k1 > 0 and k1 == 30 * chunks):
+            fail(f"[8c] {k1} K1 launches for {chunks} chunks")
+        launches["8c"] = k1
+        report("8c", f"generation_s_sweep gmm, fast, {chunks} chunk(s)",
+               len(entries), 1, wall, k1, peak)
+        with open(f"{gen}_gmm.pkl", "rb") as f:
+            before = f.read()
+        _, k1, chunks, wall, _ = _drive(
+            runs.generation_s_sweep, out=gen, scale=1.0, reps=1,
+            generations=("gmm",), fast=True)
+        with open(f"{gen}_gmm.pkl", "rb") as f:
+            after = f.read()
+        if k1 or chunks or after != before:
+            fail(f"[8c] the resume ran: {k1} K1 launches, {chunks} chunks, "
+                 f"pickle {'unchanged' if after == before else 'changed'}")
+        launches["8c_resume"] = k1
+        log(f"[8c] resume: 0 K1 launches, 0 chunks, pickle bytes unchanged, "
+            f"{wall:.3f} s")
+
+        # [8d] the ground-truth d x s sweep.
+        gt = os.path.join(tmp, "gt.pkl")
+        _, k1, _, wall, peak = _drive(runs.gt_d_s_sweep, out=gt, scale=1.0,
+                                      reps=3)
+        entries = _load(gt)
+        if len(entries) != 21:
+            fail(f"[8d] {len(entries)} entries, expected 21")
+        for e in entries:
+            for k in ("gt_loss", "gt_accuracy"):
+                v = np.asarray(e["results"][k], np.float64)
+                if v.shape != (3,) or not np.all(np.isfinite(v)):
+                    fail(f"[8d] {e['params']}: {k} {v}")
+        if k1:
+            fail(f"[8d] the ground truth launched K1 {k1} times")
+        launches["8d"] = k1
+        accs = [np.mean(e["results"]["gt_accuracy"]) for e in entries]
+        report("8d", f"gt_d_s_sweep, gt_accuracy {min(accs):.4f}-"
+               f"{max(accs):.4f}", len(entries), 3, wall, k1, peak)
+    log(f"[8] study sweeps: {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1300,6 +1470,9 @@ def main() -> int:
     ground_truth_phase()
     log(f"[7] generators and ground truth: {time.perf_counter() - t0:.1f} s")
 
+    # [8] The study's sweeps at full width.
+    study_launches = study_phase(smi)
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_train_epoch",
@@ -1315,6 +1488,7 @@ def main() -> int:
         "library_ms": None,
         "strategy_launches": strategy_launches,
         "generation_launches": generation_launches,
+        "study_launches": study_launches,
         "cluster": timings[0]["cluster"],
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,

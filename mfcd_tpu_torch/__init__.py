@@ -7,15 +7,19 @@ hand-written CUDA kernel (``ops/csrc/epoch_kernel.cu``) and the
 kernel-split profiler's two kernels beside it (``ops/kernel_split.py``).
 Every generation mode and sampling strategy of the JAX package runs, and
 so does the ground-truth-only oracle.  The entry points run on the card
-unless the caller passes ``device="cpu"``.  The package imports neither jax nor
+unless the caller passes ``device="cpu"``.  The study's sweeps are in
+``experiments.runs``; its figures (``viz``, ``experiments.plots``) need
+matplotlib and are not imported here.  The package imports neither jax nor
 ``mfcd_tpu``; kernels are built with ``nvcc`` at first use.
 """
 
 from mfcd_tpu_torch import backend  # noqa: F401  (precision pin)
+from mfcd_tpu_torch.core.config import RunConfig, SweepSpec
 from mfcd_tpu_torch.sweep.batched import parameter_scan_fast
 from mfcd_tpu_torch.sweep.engine import parameter_scan, run_experiment
 from mfcd_tpu_torch.sweep.ground_truth import (evaluate_ground_truth,
                                                parameter_scan_ground_truth)
 
-__all__ = ["evaluate_ground_truth", "parameter_scan", "parameter_scan_fast",
-           "parameter_scan_ground_truth", "run_experiment"]
+__all__ = ["RunConfig", "SweepSpec", "evaluate_ground_truth", "parameter_scan",
+           "parameter_scan_fast", "parameter_scan_ground_truth",
+           "run_experiment"]

@@ -520,3 +520,28 @@ def test_ground_truth_on_the_card_matches_the_cpu():
         for k in ("gt_loss", "gt_accuracy"):
             np.testing.assert_allclose(a["results"][k], b["results"][k],
                                        rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_study_sweep_on_the_card_reaches_k1_and_matches_the_cpu():
+    """The study's sweep ``generation_s_sweep`` (n = m = 20, low_rank, 10
+    s values, reps = 1) through the fast path with ``device=None``: it
+    launches the epoch kernel, and its 23 keys agree with the same call on
+    the CPU within ``chip_smoke.py``'s card-vs-CPU bar (rtol, atol 2e-3)."""
+    from mfcd_tpu_torch.core.results import RESULT_KEYS
+    from mfcd_tpu_torch.experiments import runs
+
+    _card()
+    kw = dict(scale=0.02, reps=1, generations=("low_rank",), fast=True)
+    before = K.EPOCH_LAUNCHES
+    card = runs.generation_s_sweep(**kw)["low_rank"]
+    assert K.EPOCH_LAUNCHES > before
+    cpu = runs.generation_s_sweep(device="cpu", **kw)["low_rank"]
+    assert len(card) == len(cpu) == 10
+    for a, b in zip(card, cpu):
+        assert a["params"] == b["params"]
+        for k in RESULT_KEYS:
+            for x, y in zip(a["results"][k], b["results"][k]):
+                np.testing.assert_allclose(np.asarray(x, np.float64),
+                                           np.asarray(y, np.float64),
+                                           rtol=2e-3, atol=2e-3, err_msg=k)

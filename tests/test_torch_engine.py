@@ -214,8 +214,20 @@ def test_port_imports_neither_jax_nor_mfcd_tpu():
             "mfcd_tpu_torch/genx/clusters.py",
             "mfcd_tpu_torch/genx/graphs.py",
             "mfcd_tpu_torch/sweep/ground_truth.py",
-            "mfcd_tpu_torch/scripts/ab_epoch_kernel.py"} <= names
+            "mfcd_tpu_torch/scripts/ab_epoch_kernel.py",
+            "mfcd_tpu_torch/experiments/runs.py",
+            "mfcd_tpu_torch/experiments/plots.py",
+            "mfcd_tpu_torch/viz/plots.py",
+            "mfcd_tpu_torch/viz/report.py",
+            "mfcd_tpu_torch/utils/checkpoint.py",
+            "mfcd_tpu_torch/utils/observability.py",
+            "mfcd_tpu_torch/utils/debug.py",
+            "mfcd_tpu_torch/data/movielens.py",
+            "mfcd_tpu_torch/data/preferences.py"} <= names
+    # The repo's JAX-side top-level packages and scripts import mfcd_tpu.
+    forbidden = ("jax", "jaxlib", "mfcd_tpu", "experiments", "scripts",
+                 "bench", "__graft_entry__")
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "mfcd_tpu"), (path, mod)
+            assert top not in forbidden, (path, mod)
