@@ -68,7 +68,24 @@ Phases, each of which raises on failure (nothing is caught and continued):
    (c) ``generation_s_sweep`` for gmm (10 s values), then the same call
    again, which resumes: no launch, the pickle's bytes unchanged; (d)
    ``gt_d_s_sweep`` (7 d x 3 s at p = 0.5, reps = 3), finite, no launch.
-   Per sweep: configurations, runs, wall, s/run, launches, peak memory.
+   Per sweep: configurations, runs, wall, s/run, launches, peak memory;
+9. AltSVM at MovieLens-100k's users and items (n = 943, m = 1682, f = 20):
+   (a) the DCD phase kernel K2 against its plain version on the card, and
+   against the plain version on the CPU, from the same state and picks
+   (T = 4,096 planted comparisons, one item phase and one user phase of 3
+   sweeps each), U, V, alpha and beta per tensor, with K2's time per phase
+   and per step beside the plain version's and the bound; (b)
+   ``init_altsvm`` -> ``train_altsvm`` at the defaults (10 epochs,
+   lambda = 0.1, C = 1, 3 sweeps) on T = 100,000 planted comparisons: 20
+   K2 launches, finite state, pairwise accuracy above 0.8, the wall, ms
+   per phase and us per coordinate step;
+10. the chunk pipeline: ``parameter_scan_fast`` at n = m = 1000, d = 2,
+   p = 0.2, 30 epochs, 8 s values x 3 reps in chunks of 2 configurations
+   (4 chunks) with ``save_path``, ``MFCD_PIPELINE`` = 0, 1, 1, 0: the same
+   params in the same order, the same results (bit-equal, or within [5]'s
+   bound where two sequential passes differ on the card), 30 K1 launches
+   per chunk; s/run off and on, peak memory; and the TPU's decision
+   artifact leaves the pipeline off with the env var unset.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -140,6 +157,23 @@ LABEL_SHARE_MIN = 0.99
 # (``chip_profile.py``'s ``svd_solvers``).
 SVD_C = 10.0
 EPS32 = 2.0 ** -24
+# [9] AltSVM at MovieLens-100k's users and items, f = 20: K2 against its
+# plain version on the card and the CPU at ALT_T_CHECK comparisons (on the
+# card the plain version's step is a dozen launches), then at the main
+# path's ALT_T (one comparison per rating of ML-100k) against the CPU's
+# plain version on the first epoch's inputs, then the model at ALT_T.  K2
+# and its plain version sum their dots in one butterfly order and round
+# every operation alike (--fmad=false), so K1's bound applies unwidened.
+ALT_N, ALT_M, ALT_F = 943, 1682, 20
+ALT_T_CHECK = 4096
+ALT_T = 100_000
+ALT_EPOCHS = 10
+ALT_SWEEPS = 3
+ALT_ACC_MIN = 0.8
+# [10] The chunk pipeline: 8 s values x 3 reps in chunks of 2 configs.
+PIPE_GRID = dict(n=1000, m=1000, d=2, p=0.2,
+                 s=[0.5, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0], lr=1e-3,
+                 weight_decay=5e-6, num_epochs=30, reps=3, max_bucket=2)
 
 
 def log(msg: str) -> None:
@@ -1362,6 +1396,310 @@ def study_phase(smi):
     return launches
 
 
+def planted_comparisons(t: int, seed: int):
+    """``t`` comparisons of a seeded planted factor model at ALT_N x ALT_M,
+    rank ALT_F, drawn as ``tests/test_legacy.py`` draws them: (users, j,
+    k, prefs) as int64, int64, int64, int32 numpy arrays, j != k, prefs the
+    sign of u . (v_j - v_k)."""
+    rng = np.random.default_rng(seed)
+    u_true = rng.normal(size=(ALT_N, ALT_F))
+    v_true = rng.normal(size=(ALT_M, ALT_F))
+    users = rng.integers(0, ALT_N, t)
+    mj = rng.integers(0, ALT_M, t)
+    mk = (mj + 1 + rng.integers(0, ALT_M - 1, t)) % ALT_M
+    scores = np.sum(u_true[users] * (v_true[mj] - v_true[mk]), axis=1)
+    return users, mj, mk, np.sign(scores).astype(np.int32)
+
+
+def dcd_bound_ms(phase: str, t: int, steps: int, f: int):
+    """Least time for one ``phase`` of ``steps`` coordinate steps over ``t``
+    comparisons: bytes, each input read once and each output written once
+    (the phase's own table read and written, the fixed table read, the
+    comparisons' three indices and label, the picks, the duals read and
+    written), over the memory rate; operations, per step the two dots and
+    the row update (about 6f + 12 for either phase)."""
+    rows, other = (ALT_N, ALT_M) if phase == "users" else (ALT_M, ALT_N)
+    nbytes = (2 * rows + other) * f * 4 + t * 16 + steps * 4 + t * 8
+    return bound_ms(nbytes, steps * (6 * f + 12))
+
+
+def step_bytes_ms(phase: str, steps: int, f: int) -> float:
+    """The bytes each step touches (its pick, indices, label and dual read
+    and written; the item phase U's row and V's two rows read and written,
+    the user phase V's two rows and U's row read and written) times the
+    steps, over the memory rate: what a phase's chain of dependent steps
+    would take if each step waited only on its own bytes."""
+    per_step = 28 + (20 if phase == "items" else 16) * f
+    return steps * per_step / PEAK_BYTES_PER_S * 1e3
+
+
+def dcd_compare(tag, phase, got, refs) -> float:
+    """Hold K2's ``(table, dual)`` against each ``(label, plain result)``,
+    per tensor within KERNEL_RTOL x max|ref| + KERNEL_ATOL; returns the
+    largest max|diff|."""
+    names = ("V", "beta") if phase == "items" else ("U", "alpha")
+    worst, errs = 0.0, []
+    for label, ref in refs:
+        for name, a, b in zip(names, ref, got):
+            a = a.to(b.device)
+            if not torch.isfinite(b).all():
+                fail(f"{tag} K2 {phase}: non-finite {name}")
+            err = float((a - b).abs().max())
+            scale = float(a.abs().max())
+            worst = max(worst, err)
+            errs.append(f"{name} vs {label} plain {err:.3g}/{scale:.3g}")
+            if err > KERNEL_RTOL * scale + KERNEL_ATOL:
+                fail(f"{tag} K2 {phase}: {name} max|diff| {err:.3g} vs the "
+                     f"{label} plain version > {KERNEL_RTOL} x max|ref| "
+                     f"{scale:.3g} + {KERNEL_ATOL}")
+    log(f"  {tag} K2 {phase} phase: max|diff|/max|ref| " + ", ".join(errs)
+        + f" (bound {KERNEL_RTOL} x max|ref| + {KERNEL_ATOL} per tensor)")
+    return worst
+
+
+def _on_cpu(args):
+    return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def altsvm_check(dev, smi):
+    """[9a] K2 against its plain version, on the card and on the CPU, from
+    the same state and picks at ALT_T_CHECK comparisons; returns per phase
+    the largest difference, K2's ms and the card's plain ms."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.models import altsvm
+    from mfcd_tpu_torch.ops import altsvm_kernels as ak
+
+    users, mj, mk, prefs = (torch.from_numpy(np.ascontiguousarray(a)).to(
+        dev, torch.int32) for a in planted_comparisons(ALT_T_CHECK, 11))
+    prefs = prefs.float()
+    comps = (users, mj, mk, prefs)
+    state = altsvm.init_altsvm(prng.key(0), ALT_N, ALT_M, ALT_F,
+                               ALT_T_CHECK, device=dev)
+    # The epoch's two phases, each from the zero origin, each fed the same
+    # inputs on every side: the item phase U's init, the user phase the
+    # plain item phase's V.
+    dual0 = torch.zeros_like(state.alpha)
+    fixed = state.user_features
+    out = {}
+    for seed, phase, table in (
+            (21, "items", torch.zeros_like(state.movie_features)),
+            (22, "users", torch.zeros_like(state.user_features))):
+        picks = altsvm._picks(prng.key(seed, device=dev), ALT_T_CHECK,
+                              ALT_SWEEPS)
+        args = (phase, table, fixed, dual0, picks, *comps, 0.1, 1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ak.dcd_phase_reference(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = ak.dcd_phase(*args)
+        cpu = ak.dcd_phase(*_on_cpu(args))
+        err = dcd_compare("[9a]", phase, got,
+                          (("card", want), ("CPU", cpu)))
+        fixed = want[0]
+        out[phase] = dict(err=err, plain_card_ms=plain_ms,
+                          ms=time_ms(lambda: ak.dcd_phase(*args), warmup=1,
+                                     reps=5))
+    steps = ALT_T_CHECK * ALT_SWEEPS
+    log(f"[9a] K2 at n={ALT_N}, m={ALT_M}, f={ALT_F}, T={ALT_T_CHECK}, "
+        f"{steps} steps a phase: "
+        + "; ".join(f"{ph} {o['ms']:.4f} ms ({1e3 * o['ms'] / steps:.4f} us "
+                    f"a step), plain on the card {o['plain_card_ms']:.1f} ms"
+                    for ph, o in out.items()) + f"; {smi}")
+    return out
+
+
+def altsvm_main_shape_check(dev, state, comps, key, smi):
+    """[9b] K2 at the main path's shape against the CPU's plain version,
+    on the first epoch's inputs as ``train_altsvm`` makes them (its keys,
+    picks and zeroed tables and duals; the user phase fed the plain item
+    phase's V); returns per phase the largest difference, K2's ms, the
+    plain version's ms and the bound."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.models import altsvm
+    from mfcd_tpu_torch.ops import altsvm_kernels as ak
+
+    k1, k2 = prng.split(prng.split(key.to(dev), ALT_EPOCHS)[0]).unbind(-2)
+    dual0 = torch.zeros_like(state.alpha)
+    fixed = state.user_features
+    steps = ALT_T * ALT_SWEEPS
+    out = {}
+    for phase, pkey, table in (
+            ("items", k1, torch.zeros_like(state.movie_features)),
+            ("users", k2, torch.zeros_like(state.user_features))):
+        picks = altsvm._picks(pkey, ALT_T, ALT_SWEEPS)
+        args = (phase, table, fixed, dual0, picks, *comps, 0.1, 1.0)
+        got = ak.dcd_phase(*args)
+        cpu_args = _on_cpu(args)
+        t0 = time.perf_counter()
+        cpu = ak.dcd_phase(*cpu_args)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = dcd_compare("[9b]", phase, got, (("CPU", cpu),))
+        ms = time_ms(lambda: ak.dcd_phase(*args), warmup=0, reps=3)
+        least, by = dcd_bound_ms(phase, ALT_T, steps, ALT_F)
+        out[phase] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=least,
+                          bound_by=by)
+        log(f"  [9b] K2 {phase} phase at T={ALT_T}, {steps} steps: "
+            f"{ms:.3f} ms ({1e3 * ms / steps:.4f} us a step), plain on the "
+            f"CPU {plain_ms:.1f} ms; bound {least:.6f} ms ({by}; "
+            f"{step_bytes_ms(phase, steps, ALT_F):.6f} ms by the bytes each "
+            f"step touches), a chain of {steps} dependent steps; {smi}")
+        fixed = cpu[0].to(dev)
+    return out
+
+
+def altsvm_phase(dev, smi):
+    """[9] K2 against its plain version at the check's shape and at the
+    main path's, then the model at full size with the kernel launches read
+    around ``train_altsvm``."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.models import altsvm
+    from mfcd_tpu_torch.ops import altsvm_kernels as ak
+
+    t_all = time.perf_counter()
+    small = altsvm_check(dev, smi)
+    users, mj, mk, prefs = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in planted_comparisons(ALT_T, 12))
+    state = altsvm.init_altsvm(prng.key(0), ALT_N, ALT_M, ALT_F, ALT_T,
+                               device=dev)
+    key = prng.key(1)
+    full = altsvm_main_shape_check(
+        dev, state, altsvm._comparisons(state.user_features, users, mj, mk,
+                                        prefs), key, smi)
+    torch.cuda.synchronize()
+    ak.DCD_LAUNCHES = dict.fromkeys(ak.PHASES, 0)
+    t0 = time.perf_counter()
+    state = altsvm.train_altsvm(state, key, users, mj, mk, prefs,
+                                num_epochs=ALT_EPOCHS,
+                                sweeps_per_phase=ALT_SWEEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ak.DCD_LAUNCHES)
+    if launches != dict.fromkeys(ak.PHASES, ALT_EPOCHS):
+        fail(f"[9b] train_altsvm launched K2 {launches} times, expected "
+             f"{ALT_EPOCHS} a phase")
+    if not all(bool(torch.isfinite(a).all()) for a in state):
+        fail("[9b] non-finite AltSVM state")
+    for name, a in (("alpha", state.alpha), ("beta", state.beta)):
+        if float(a.min()) < 0.0 or float(a.max()) > 1.0:
+            fail(f"[9b] {name} outside [0, C]")
+    acc = float(altsvm.pairwise_accuracy(state, users, mj, mk, prefs))
+    if not acc > ALT_ACC_MIN:
+        fail(f"[9b] pairwise accuracy {acc:.4f} is not above {ALT_ACC_MIN}")
+    steps = ALT_T * ALT_SWEEPS
+    phase_ms = 1e3 * wall / sum(launches.values())
+    log(f"[9b] train_altsvm n={ALT_N}, m={ALT_M}, f={ALT_F}, T={ALT_T}, "
+        f"{ALT_EPOCHS} epochs x {ALT_SWEEPS} sweeps: {wall:.3f} s, K2 "
+        f"launches {launches}, {phase_ms:.3f} ms a phase "
+        f"({1e3 * phase_ms / steps:.4f} us a step, picks and copies "
+        f"included); pairwise accuracy {acc:.4f}; {smi}")
+    log(f"[9] AltSVM: {time.perf_counter() - t_all:.1f} s")
+    return [{
+        "name": f"altsvm_dcd_phase:{phase}",
+        "route": "cuda",
+        "source": "mfcd_tpu_torch/ops/csrc/altsvm_dcd.cu",
+        "replaces": ("mfcd_tpu/models/altsvm.py:136" if phase == "items"
+                     else "mfcd_tpu/models/altsvm.py:109"),
+        "tpu_kernel": None,
+        "launches": launches[phase],
+        "max_abs_err": max(small[phase]["err"], full[phase]["err"]),
+        "ms": full[phase]["ms"],
+        "plain_ms": full[phase]["plain_ms"],
+        "plain_device": "cpu",
+        "bound_ms": full[phase]["bound_ms"],
+        "bound_by": full[phase]["bound_by"],
+        "library_ms": None,
+        "shape": {"n": ALT_N, "m": ALT_M, "f": ALT_F, "T": ALT_T,
+                  "sweeps": ALT_SWEEPS},
+        "us_per_step": 1e3 * full[phase]["ms"] / steps,
+        "check_T": ALT_T_CHECK,
+        "check_ms": small[phase]["ms"],
+        "check_plain_card_ms": small[phase]["plain_card_ms"],
+        "train_s": wall,
+        "ms_per_phase_main_path": phase_ms,
+        "accuracy": acc,
+    } for phase in ("items", "users")]
+
+
+def pipeline_phase(smi):
+    """[10] ``parameter_scan_fast`` with the pipeline off and on, in turns
+    (0, 1, 1, 0), 4 chunks each: same params in order, same results, 30 K1
+    launches a chunk; s/run and peak memory per mode."""
+    from mfcd_tpu_torch.core import decisions
+    from mfcd_tpu_torch.sweep import batched
+
+    t_all = time.perf_counter()
+    env = os.environ.pop("MFCD_PIPELINE", None)
+    decisions._cache.clear()
+    if batched.pipeline_enabled():
+        fail("[10] the pipeline is on with MFCD_PIPELINE unset (the TPU's "
+             "docs/decisions/pipeline.json must not set the card's default)")
+    configs = len(PIPE_GRID["s"])
+    runs = configs * PIPE_GRID["reps"]
+    chunks_expected = -(-configs // PIPE_GRID["max_bucket"])
+    passes = []
+    with tempfile.TemporaryDirectory(prefix="mfcd_chip_smoke_") as tmp:
+        try:
+            for k, flag in enumerate(("0", "1", "1", "0")):
+                os.environ["MFCD_PIPELINE"] = flag
+                path = os.path.join(tmp, f"pipe{k}.pkl")
+                out, k1, chunks, wall, peak = _drive(
+                    batched.parameter_scan_fast, save_path=path,
+                    **PIPE_GRID)
+                with open(path, "rb") as f:
+                    raw = f.read()
+                passes.append(dict(on=flag == "1", wall=wall, k1=k1,
+                                   chunks=chunks, peak=peak, raw=raw,
+                                   entries=pickle.loads(raw)))
+                if out != [] or chunks != chunks_expected or \
+                        k1 != 30 * chunks:
+                    fail(f"[10] pass {k} (MFCD_PIPELINE={flag}): {chunks} "
+                         f"chunks, {k1} K1 launches, expected "
+                         f"{chunks_expected} and 30 a chunk")
+        finally:
+            os.environ.pop("MFCD_PIPELINE", None)
+            if env is not None:
+                os.environ["MFCD_PIPELINE"] = env
+    ref = passes[0]
+    params = [e["params"] for e in ref["entries"]]
+    if [p["s"] for p in params] != PIPE_GRID["s"]:
+        fail(f"[10] params {params}")
+    _check_entries(ref["entries"], "[10]")
+    # Bit-equal where the sequential path repeats its own bits on the card;
+    # else [5]'s card bound on the 23 keys.
+    bit_equal_seq = passes[3]["raw"] == ref["raw"]
+    for k, p in enumerate(passes[1:], 1):
+        if [e["params"] for e in p["entries"]] != params:
+            fail(f"[10] pass {k}: params differ from pass 0's")
+        if bit_equal_seq:
+            if p["raw"] != ref["raw"]:
+                fail(f"[10] pass {k}: the pickle differs from pass 0's")
+        else:
+            for a, b in zip(ref["entries"], p["entries"]):
+                compare_results(a["results"], b["results"],
+                                f"[10] pass {k} vs pass 0")
+    s_run = {on: min(p["wall"] for p in passes if p["on"] == on) / runs
+             for on in (False, True)}
+    peak = {on: max(p["peak"] for p in passes if p["on"] == on)
+            for on in (False, True)}
+    log(f"[10] pipeline: parameter_scan_fast, {configs} configurations x "
+        f"{PIPE_GRID['reps']} reps in {chunks_expected} chunks, passes "
+        + ", ".join(f"{'on' if p['on'] else 'off'} {p['wall']:.3f} s"
+                    for p in passes)
+        + f"; best s/run off {s_run[False]:.4f}, on {s_run[True]:.4f} "
+        f"(on/off {s_run[True] / s_run[False]:.4f}); peak device memory off "
+        f"{peak[False] / 1e6:.1f} MB, on {peak[True] / 1e6:.1f} MB; "
+        + ("pickles byte-equal in all four passes" if bit_equal_seq else
+           "two sequential passes differ on the card: 23 keys within rtol "
+           f"{CARD_CPU_RTOL}, atol {CARD_CPU_ATOL}")
+        + f"; {passes[0]['k1']} K1 launches a pass; {smi}")
+    log(f"[10] pipeline: {time.perf_counter() - t_all:.1f} s")
+    return dict(s_per_run_off=s_run[False], s_per_run_on=s_run[True],
+                peak_off=peak[False], peak_on=peak[True],
+                bit_equal=bit_equal_seq,
+                launches=[p["k1"] for p in passes])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1473,6 +1811,12 @@ def main() -> int:
     # [8] The study's sweeps at full width.
     study_launches = study_phase(smi)
 
+    # [9] AltSVM: K2 against its plain version, then the model at full size.
+    alt_entries = altsvm_phase(dev, smi)
+
+    # [10] The chunk pipeline off and on.
+    pipe = pipeline_phase(smi)
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_train_epoch",
@@ -1492,7 +1836,8 @@ def main() -> int:
         "cluster": timings[0]["cluster"],
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,
-    }] + split_entries}), flush=True)
+        "pipeline": pipe,
+    }] + split_entries + alt_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from mfcd_tpu_torch.data.btl import LabeledSplit
+from mfcd_tpu_torch.models.altsvm import AltSVMState
 from mfcd_tpu_torch.models.mf import MFParams
 from mfcd_tpu_torch.ops.kernels import EpochState
 
@@ -44,3 +45,11 @@ def split_from_jax(u, i, j, z, valid, count, device="cpu") -> LabeledSplit:
         j=_t(j, device, torch.int32), z=_t(z, device, torch.float32),
         valid=_t(valid, device, torch.bool),
         count=_t(count, device, torch.int32))
+
+
+def altsvm_state_from_jax(user_features, movie_features, alpha, beta,
+                          device="cpu") -> AltSVMState:
+    """``AltSVMState`` (U ``[n, f]``, V ``[m, f]``, alpha, beta ``[T]``) as
+    float32."""
+    return AltSVMState(*(_t(a, device, torch.float32) for a in
+                         (user_features, movie_features, alpha, beta)))

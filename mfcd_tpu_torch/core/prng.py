@@ -13,7 +13,9 @@ Counterpart of the parts of jax 0.9.0's ``jax/_src/prng.py`` and
 - ``normal`` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``,
 - ``randint`` combines two keyed draws with the span-multiplier formula,
 - ``gumbel`` is mode "low", ``-log(-log(uniform(tiny, 1)))``, and
-  ``categorical`` is ``argmax(gumbel + logits)`` over the last axis.
+  ``categorical`` is ``argmax(gumbel + logits)`` over the last axis,
+- ``permutation(k, t)`` sorts ``arange(t)`` by fresh 32-bit keys, stably,
+  ``ceil(3 ln t / ln(2^32 - 1))`` times (``random.py::_shuffle``).
 
 Torch has no full uint32 arithmetic, so every word lives in an int64 lane
 masked to 32 bits.  Products of two 32-bit words would overflow int64 and
@@ -189,6 +191,22 @@ def randint(k: torch.Tensor, shape: Sequence[int], minval: int,
     offset = mul32(higher % span, mult)
     offset = ((offset + lower % span) & M32) % span
     return (int(minval) + offset).to(torch.int32)
+
+
+def permutation(k: torch.Tensor, t: int) -> torch.Tensor:
+    """``jax.random.permutation(k, t)`` for an integer ``t``: int32 ``[...,
+    t]``.  Each round splits the key, draws one 32-bit word per element
+    from the second half and sorts by the words, stably (equal words keep
+    their order, as ``lax.sort_key_val`` does)."""
+    rounds = int(np.ceil(3 * np.log(max(1, t))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(t, dtype=torch.int32, device=k.device).expand(
+        k.shape[:-1] + (t,))
+    for _ in range(rounds):
+        k, sub = split(k).unbind(-2)
+        order = torch.sort(bits(sub, (t,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x
 
 
 _F32_TINY = float(np.finfo(np.float32).tiny)

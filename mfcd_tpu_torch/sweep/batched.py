@@ -10,16 +10,24 @@ a bucket; only shape-changing parameters split buckets.  Run keys are
 folded from the global config index, so results do not depend on how the
 grid was bucketed or chunked.
 
+``MFCD_PIPELINE=1`` turns on the 1-deep chunk pipeline
+(:func:`pipeline_enabled`): one worker thread runs chunk k+1's dispatch
+(``_run_bucket_device`` and the copy of its outputs to the host) while the
+caller exports and persists chunk k.  Results and the pickle are the same
+bits, in the same order, with it off or on.  Its default is off on the
+card until a card measurement records otherwise (``core/decisions.py``).
+
 Not ported, with the reasons in ``ROADMAP.md``: the device ``mesh`` (one
-card), the TPU-transport retries and compile-cache purge, and
-``MFCD_PIPELINE`` (the overlap of one chunk's export with the next one's
-dispatch, with its ``run_bucket_async`` / ``BucketFuture`` split).  The
-phases are ``torch.profiler`` spans: ``mfcd.sweep.dispatch``,
-``mfcd.sweep.collect``, ``mfcd.sweep.export``, ``mfcd.sweep.persist``.
+card) and the TPU-transport retries and compile-cache purge.  The phases
+are ``torch.profiler`` spans: ``mfcd.sweep.dispatch`` and
+``mfcd.sweep.collect`` (the copy to the host; both on the worker when
+pipelined), ``mfcd.sweep.wait`` (the caller waiting for a chunk),
+``mfcd.sweep.export``, ``mfcd.sweep.persist``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import sys
 from typing import Any, Dict, List, Optional, Sequence
@@ -29,7 +37,7 @@ import torch
 from torch.profiler import record_function
 
 from mfcd_tpu_torch.backend import resolve_device
-from mfcd_tpu_torch.core import prng, rng
+from mfcd_tpu_torch.core import decisions, prng, rng
 from mfcd_tpu_torch.core.config import (TRAIN_RATIO, RunConfig, SweepSpec,
                                         _next_pow2, bucket_by_shape)
 from mfcd_tpu_torch.core.results import export_results
@@ -58,7 +66,55 @@ _GMM_POINT_BYTES = 64    # gmm: per (component, point, dim) of the EM step
 CPU_BUDGET_BYTES = 2e9   # the JAX package's working budget, for the CPU
 
 
-def run_bucket(
+def _is_oom(err: BaseException) -> bool:
+    """A device out-of-memory: torch's own error, or one whose message says
+    so (a launch the allocator could not serve).  Deterministic for a given
+    chunk size, so the answer is bisection, not a retry."""
+    return (isinstance(err, torch.cuda.OutOfMemoryError)
+            or "out of memory" in str(err).lower())
+
+
+def pipeline_enabled() -> bool:
+    """Whether the 1-deep chunk pipeline is on: ``MFCD_PIPELINE``, else the
+    card's decision artifact ``pipeline`` (``docs/decisions_cuda/``, none
+    committed), else off.  The TPU's ``docs/decisions/pipeline.json`` is
+    never read."""
+    return decisions.flag_enabled("MFCD_PIPELINE", "pipeline", default=False)
+
+
+class BucketFuture:
+    """A dispatched chunk: its host results now or later, collected once.
+
+    ``dispatch()`` runs on ``executor`` (one worker thread) when one is
+    given, else at once; any error it raises is kept and raised by
+    :meth:`collect`, so a pipelined caller meets every failure in chunk
+    order.  An OOM reaches the caller's bisector from ``collect()`` at
+    once, and so does every other error: nothing is retried."""
+
+    def __init__(self, dispatch, postprocess,
+                 executor: Optional[concurrent.futures.Executor] = None):
+        self._post = postprocess
+        if executor is not None:
+            self._job = executor.submit(dispatch)
+            return
+        self._job = concurrent.futures.Future()
+        try:
+            self._job.set_result(dispatch())
+        except Exception as err:  # noqa: BLE001 - raised again by collect()
+            self._job.set_exception(err)
+
+    def wait(self) -> None:
+        """Block until the dispatch has ended; raise nothing."""
+        concurrent.futures.wait([self._job])
+
+    def collect(self) -> List[Dict[str, Any]]:
+        with record_function("mfcd.sweep.wait"):
+            host = self._job.result()
+        with record_function("mfcd.sweep.export"):
+            return self._post(host)
+
+
+def run_bucket_async(
     cfg: RunConfig,
     hyper_rows: Sequence[Dict[str, float]],
     config_indices: Sequence[int],
@@ -66,18 +122,24 @@ def run_bucket(
     caps=None,
     bucket_configs: Optional[Sequence[RunConfig]] = None,
     device=None,
-) -> List[Dict[str, Any]]:
-    """Run a same-shape bucket of configurations on ``device``; returns one
-    reference results dict per configuration, in bucket order.
+    executor: Optional[concurrent.futures.Executor] = None,
+) -> BucketFuture:
+    """Dispatch a same-shape bucket of configurations on ``device``; returns
+    a :class:`BucketFuture` whose ``collect()`` gives one reference results
+    dict per configuration, in bucket order.
 
     ``hyper_rows`` carries ``{'s', 'lr', 'weight_decay'}`` per
     configuration and ``config_indices`` their global experiment indices
     (the keys are folded from them).  With ``caps`` (a ``(t_cap,
     extra_cap)`` capacity bucket) and ``bucket_configs`` (the per-row
     RunConfigs), configurations differing only in sparsity share the
-    bucket, each with its exact triplet budget.  The JAX package's
-    ``run_bucket_async`` / ``BucketFuture`` split returns with a caller
-    that overlaps chunks (``MFCD_PIPELINE``, not ported)."""
+    bucket, each with its exact triplet budget.
+
+    The keys and per-run values are made here, in the caller; the runs and
+    the copy of their outputs to the host are the dispatch, which runs on
+    ``executor`` when one is given.  It copies to the host itself, so the
+    caller's collect never waits behind a later chunk's kernels; and it
+    makes the caller's card current in the worker thread."""
     device = resolve_device(device)
     b = len(hyper_rows)
     idx = torch.as_tensor(np.asarray(config_indices, np.int64), device=device)
@@ -86,17 +148,23 @@ def run_bucket(
     shs = ([c.shapes() for c in bucket_configs] if bucket_configs is not None
            else [cfg.shapes()] * b)
     targets = [sh.num_triplets for sh in shs]
-    with record_function("mfcd.sweep.dispatch"):
-        out = _run_bucket_device(
-            dataclasses.replace(cfg, s=0.0, lr=0.0, weight_decay=0.0),
-            cfg_keys, column("s"), column("lr"), column("weight_decay"),
-            use_kernel=default_use_kernel(cfg, device), caps=caps,
-            budgets=np.asarray(targets, np.int32),
-            extra_budgets=np.asarray([sh.extra_test_triplets for sh in shs],
-                                     np.int32))
-    with record_function("mfcd.sweep.collect"):
-        host = {k: v.cpu() for k, v in out.items()}
-    with record_function("mfcd.sweep.export"):
+    card = cfg_keys.device.index if device.type == "cuda" else None
+
+    def dispatch():
+        if card is not None:
+            torch.cuda.set_device(card)
+        with record_function("mfcd.sweep.dispatch"):
+            out = _run_bucket_device(
+                dataclasses.replace(cfg, s=0.0, lr=0.0, weight_decay=0.0),
+                cfg_keys, column("s"), column("lr"), column("weight_decay"),
+                use_kernel=default_use_kernel(cfg, device), caps=caps,
+                budgets=np.asarray(targets, np.int32),
+                extra_budgets=np.asarray(
+                    [sh.extra_test_triplets for sh in shs], np.int32))
+        with record_function("mfcd.sweep.collect"):
+            return {k: v.cpu() for k, v in out.items()}
+
+    def postprocess(host):
         results = []
         for bi in range(b):
             per_cfg = {k: v[bi] for k, v in host.items()}
@@ -107,6 +175,23 @@ def run_bucket(
                           file=sys.stderr)
             results.append(export_results(per_cfg))
         return results
+
+    return BucketFuture(dispatch, postprocess, executor)
+
+
+def run_bucket(
+    cfg: RunConfig,
+    hyper_rows: Sequence[Dict[str, float]],
+    config_indices: Sequence[int],
+    seed: int = DEFAULT_SEED,
+    caps=None,
+    bucket_configs: Optional[Sequence[RunConfig]] = None,
+    device=None,
+) -> List[Dict[str, Any]]:
+    """Synchronous :func:`run_bucket_async`: dispatch, collect, export."""
+    return run_bucket_async(cfg, hyper_rows, config_indices, seed=seed,
+                            caps=caps, bucket_configs=bucket_configs,
+                            device=device).collect()
 
 
 def memory_budget_bytes(device) -> float:
@@ -205,7 +290,13 @@ def default_max_bucket(cfg: RunConfig, t_cap: Optional[int] = None,
                        device=None) -> int:
     """Configurations per chunk: the memory budget over the per-run bytes
     (at least 4 runs), divided by the repetitions per configuration, as in
-    the JAX package.  Printed once per process and choice."""
+    the JAX package.  Printed once per process and choice.
+
+    With the pipeline on, two chunks are in flight: the one being exported
+    holds only host memory (its dispatch copied its outputs to the host and
+    freed them), and the one being dispatched its card working set, so at
+    most one chunk's working set is on the card; a chunk is budgeted a
+    quarter of it, so even two would fit."""
     global _logged_max_bucket
     device = resolve_device(device)
     per_run = run_bytes(cfg, t_cap)
@@ -244,7 +335,9 @@ def parameter_scan_fast(
     signature, and ignored.  ``resume=True`` keeps an existing results file and
     skips configurations already in it.  A chunk that runs out of device
     memory is split in two and retried, down to single configurations.
-    ``device=None`` means the card."""
+    With ``MFCD_PIPELINE=1`` (:func:`pipeline_enabled`) chunk k+1 is
+    dispatched on a worker thread before chunk k is collected; the results
+    and the pickle are the same.  ``device=None`` means the card."""
     device = resolve_device(device)
     spec = SweepSpec(params=params, linear=linear, batch_size=batch_size)
     param_sets = spec.expand()
@@ -262,49 +355,93 @@ def parameter_scan_fast(
             reset_save_path(save_path)
 
     slot_results: List[Optional[Dict]] = [None] * len(configs)
-    for indices in buckets.values():
-        indices = [i for i in indices if param_sets[i] not in done]
-        if not indices:
-            continue
-        rep_cfg = configs[indices[0]]
-        caps = compile_caps(rep_cfg) if pad_compiles else None
-        bucket_cap = (max_bucket if max_bucket is not None
-                      else default_max_bucket(
-                          rep_cfg, t_cap=caps[0] if caps else None,
-                          device=device))
+    # MFCD_PIPELINE: one worker thread dispatches chunk k+1 while this
+    # thread exports and persists chunk k.
+    pool = (concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="mfcd-dispatch")
+        if pipeline_enabled() else None)
+    try:
+        for indices in buckets.values():
+            indices = [i for i in indices if param_sets[i] not in done]
+            if not indices:
+                continue
+            rep_cfg = configs[indices[0]]
+            caps = compile_caps(rep_cfg) if pad_compiles else None
+            bucket_cap = (max_bucket if max_bucket is not None
+                          else default_max_bucket(
+                              rep_cfg, t_cap=caps[0] if caps else None,
+                              device=device))
 
-        def run_chunk(chunk):
-            try:
-                return run_bucket(
+            def dispatch_chunk(chunk) -> BucketFuture:
+                return run_bucket_async(
                     rep_cfg,
                     [{"s": configs[i].s, "lr": configs[i].lr,
                       "weight_decay": configs[i].weight_decay}
                      for i in chunk],
                     chunk, seed=seed, caps=caps,
                     bucket_configs=[configs[i] for i in chunk],
-                    device=device)
-            except torch.cuda.OutOfMemoryError:
-                # The per-run estimate is a model: halving converges on a
-                # chunk that fits.
-                if len(chunk) <= 1:
-                    raise
+                    device=device, executor=pool)
+
+            def collect_or_bisect(chunk, fut, in_flight=None):
+                """Collect a chunk; on a device OOM, split it in two and
+                run the halves (the per-run estimate is a model: halving
+                converges on a chunk that fits).  A chunk ``in_flight``
+                behind it is drained first, so the halves run alone."""
+                try:
+                    return fut.collect()
+                except RuntimeError as err:
+                    if not _is_oom(err) or len(chunk) <= 1:
+                        raise
                 print(f"⚠️ device OOM on a {len(chunk)}-config chunk; "
-                      f"bisecting", file=sys.stderr)
+                      + ("draining the in-flight chunk, then "
+                         if in_flight is not None else "") + "bisecting",
+                      file=sys.stderr)
+                if in_flight is not None:
+                    in_flight.wait()
                 if device.type == "cuda":
                     torch.cuda.empty_cache()
                 mid = len(chunk) // 2
                 return run_chunk(chunk[:mid]) + run_chunk(chunk[mid:])
 
-        for lo in range(0, len(indices), bucket_cap):
-            chunk = indices[lo:lo + bucket_cap]
-            outs = run_chunk(chunk)
-            for i, res in zip(chunk, outs):
-                slot_results[i] = res
-            if save_path:
-                with record_function("mfcd.sweep.persist"):
-                    append_results(save_path, [
-                        {"params": param_sets[i], "results": res}
-                        for i, res in zip(chunk, outs)])
+            def run_chunk(chunk):
+                return collect_or_bisect(chunk, dispatch_chunk(chunk))
+
+            def store(chunk, outs):
+                for i, res in zip(chunk, outs):
+                    slot_results[i] = res
+                if save_path:
+                    with record_function("mfcd.sweep.persist"):
+                        append_results(save_path, [
+                            {"params": param_sets[i], "results": res}
+                            for i, res in zip(chunk, outs)])
+
+            # One loop for both settings.  Pipelined, chunk k+1 is
+            # dispatched (on the worker) before chunk k is collected,
+            # exported and persisted; sequential, chunk k is done first.
+            # Chunks persist in chunk order and errors surface in chunk
+            # order.  An eager failure of chunk k+1's dispatch persists
+            # chunk k before it surfaces, as the sequential order would.
+            pending = None
+            for lo in range(0, len(indices), bucket_cap):
+                chunk = indices[lo:lo + bucket_cap]
+                if pending is not None and pool is None:
+                    store(pending[0], collect_or_bisect(*pending))
+                    pending = None
+                try:
+                    fut = dispatch_chunk(chunk)
+                except Exception:
+                    if pending is not None:
+                        store(pending[0], collect_or_bisect(*pending))
+                    raise
+                if pending is not None:
+                    store(pending[0], collect_or_bisect(*pending,
+                                                        in_flight=fut))
+                pending = (chunk, fut)
+            if pending is not None:
+                store(pending[0], collect_or_bisect(*pending))
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
 
     if save_path:
         return []

@@ -2,8 +2,9 @@
 epoch (K1) at every launch shape, R and batch size it takes, its five stage
 variants (P1) and the factored-layout epoch (P2), which are K1's code and
 take the same launch shapes and batch sizes (P1's ``full`` bit-equal to
-K1); and every sampler, every generator and the ground-truth oracle on the
-card against the CPU.
+K1), and AltSVM's phase kernel (K2); and every sampler, every generator,
+the ground-truth oracle, AltSVM and the chunk pipeline on the card against
+the CPU or the sequential loop.
 
 Imports neither jax nor ``mfcd_tpu``, so it runs on a machine with the card
 and without jax::
@@ -540,6 +541,115 @@ def test_study_sweep_on_the_card_reaches_k1_and_matches_the_cpu():
     assert len(card) == len(cpu) == 10
     for a, b in zip(card, cpu):
         assert a["params"] == b["params"]
+        for k in RESULT_KEYS:
+            for x, y in zip(a["results"][k], b["results"][k]):
+                np.testing.assert_allclose(np.asarray(x, np.float64),
+                                           np.asarray(y, np.float64),
+                                           rtol=2e-3, atol=2e-3, err_msg=k)
+
+
+def _comparisons(dev, n, m, t, seed):
+    g = np.random.default_rng(seed)
+    users = g.integers(0, n, t)
+    mj = g.integers(0, m, t)
+    mk = (mj + 1 + g.integers(0, m - 1, t)) % m
+    prefs = np.where(g.random(t) < 0.5, 1.0, -1.0)
+    return tuple(torch.as_tensor(a, dtype=dt, device=dev) for a, dt in (
+        (users, torch.int32), (mj, torch.int32), (mk, torch.int32),
+        (prefs, torch.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["items", "users"])
+@pytest.mark.parametrize("f", [20, 45])
+def test_dcd_kernel_matches_plain_version(phase, f):
+    """K2 against its plain version on the card and on the CPU: one phase of
+    3 sweeps over 300 comparisons, from a random table (items: V, users:
+    U) and duals in [0, 1]; f = 45 gives lanes two components.  Both sum in
+    one butterfly order and round alike: within chip_smoke.py's 1e-5 x
+    max|ref| + 1e-12 per tensor; the inputs are left as they were."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.models import altsvm
+    from mfcd_tpu_torch.ops import altsvm_kernels as AK
+
+    dev = _card()
+    n, m, t = 30, 40, 300
+    g = np.random.default_rng(f)
+    rows = {"items": (m, n), "users": (n, m)}[phase]
+    table, fixed = (torch.as_tensor(g.standard_normal((r, f)),
+                                    dtype=torch.float32, device=dev)
+                    for r in rows)
+    dual = torch.as_tensor(g.random(t), dtype=torch.float32, device=dev)
+    picks = altsvm._picks(prng.key(f, device=dev), t, 3)
+    args = (phase, table, fixed, dual, picks, *_comparisons(dev, n, m, t, f),
+            0.1, 1.0)
+    keep = [table.clone(), dual.clone()]
+    want = AK.dcd_phase_reference(*args)
+    cpu = AK.dcd_phase(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                         for a in args))
+    before = dict(AK.DCD_LAUNCHES)
+    got = AK.dcd_phase(*args)
+    torch.cuda.synchronize()
+    assert AK.DCD_LAUNCHES == dict(before, **{phase: before[phase] + 1})
+    assert torch.equal(keep[0], table) and torch.equal(keep[1], dual)
+    for ref in (want, cpu):
+        for a, b in zip(ref, got):
+            a = a.to(dev)
+            err = float((a - b).abs().max())
+            assert err <= 1e-5 * float(a.abs().max()) + 1e-12, err
+
+
+@pytest.mark.cuda
+def test_train_altsvm_on_the_card_matches_the_cpu():
+    """``train_altsvm`` on CUDA tensors: 2 K2 launches an epoch, the
+    visiting order drawn on the card; 2 epochs agree with the CPU's plain
+    version within 1e-5 x max|ref| + 1e-12 per tensor."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.models import altsvm
+    from mfcd_tpu_torch.ops import altsvm_kernels as AK
+
+    dev = _card()
+    n, m, f, t = 30, 40, 8, 400
+    comps = _comparisons(dev, n, m, t, 5)
+    card0 = altsvm.init_altsvm(prng.key(0), n, m, f, t)
+    assert card0.user_features.device.type == "cuda"
+    cpu0 = altsvm.AltSVMState(*(a.cpu() for a in card0))
+    before = dict(AK.DCD_LAUNCHES)
+    card = altsvm.train_altsvm(card0, prng.key(1), *comps, num_epochs=2)
+    torch.cuda.synchronize()
+    assert AK.DCD_LAUNCHES == {k: v + 2 for k, v in before.items()}
+    cpu = altsvm.train_altsvm(cpu0, prng.key(1), *(c.cpu() for c in comps),
+                              num_epochs=2)
+    for a, b in zip(cpu, card):
+        err = float((a - b.cpu()).abs().max())
+        assert err <= 1e-5 * float(a.abs().max()) + 1e-12, err
+
+
+@pytest.mark.cuda
+def test_pipeline_on_the_card_matches_off(tmp_path, monkeypatch):
+    """``parameter_scan_fast`` with ``MFCD_PIPELINE`` on and off on the
+    card (3 chunks): the same params in the same order, K1 launched for
+    every chunk in both modes, and the 23 keys within chip_smoke.py's
+    card bar (rtol, atol 2e-3) of each other."""
+    import pickle
+
+    from mfcd_tpu_torch.core.results import RESULT_KEYS
+    from mfcd_tpu_torch.sweep import batched
+
+    _card()
+    grid = dict(n=24, m=24, d=2, p=0.6, s=[1.0, 2.0, 3.0], num_epochs=2,
+                reps=2, max_bucket=1)
+    out = {}
+    for flag in ("0", "1"):
+        monkeypatch.setenv("MFCD_PIPELINE", flag)
+        before = K.EPOCH_LAUNCHES
+        path = str(tmp_path / f"p{flag}.pkl")
+        batched.parameter_scan_fast(save_path=path, **grid)
+        assert K.EPOCH_LAUNCHES - before == 2 * 3
+        with open(path, "rb") as f:
+            out[flag] = pickle.load(f)
+    assert [e["params"] for e in out["0"]] == [e["params"] for e in out["1"]]
+    for a, b in zip(out["0"], out["1"]):
         for k in RESULT_KEYS:
             for x, y in zip(a["results"][k], b["results"][k]):
                 np.testing.assert_allclose(np.asarray(x, np.float64),

@@ -300,8 +300,9 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_build_target_follows_included_headers(tmp_path):
     # The library's name hashes the source and every csrc/ header it
-    # includes: an edit to the shared header rebuilds both kernel sources,
-    # an edit to a header nothing includes rebuilds neither.  No nvcc.
+    # includes: an edit to the shared header rebuilds both epoch kernel
+    # sources and not the AltSVM kernel's, which includes no header; an
+    # edit to a header nothing includes rebuilds none.  No nvcc.
     import os
     import shutil
 
@@ -309,12 +310,15 @@ def test_build_target_follows_included_headers(tmp_path):
 
     for name in os.listdir(_build.CSRC):
         shutil.copy(os.path.join(_build.CSRC, name), tmp_path / name)
-    sources = sorted(str(p) for p in tmp_path.glob("*.cu"))
-    assert [os.path.basename(p) for p in sources] == ["epoch_kernel.cu",
-                                                      "epoch_variants.cu"]
+    every = sorted(str(p) for p in tmp_path.glob("*.cu"))
+    assert [os.path.basename(p) for p in every] == [
+        "altsvm_dcd.cu", "epoch_kernel.cu", "epoch_variants.cu"]
+    alone, sources = every[0], every[1:]
+    assert _build._local_files(alone) == [alone]
     for src in sources:
         assert str(tmp_path / "epoch_body.cuh") in _build._local_files(src)
     before = [_build._target(src) for src in sources]
+    alone_before = _build._target(alone)
     (tmp_path / "unused.cuh").write_text("// included by nothing\n")
     assert [_build._target(src) for src in sources] == before
     with open(tmp_path / "epoch_body.cuh", "a") as f:
@@ -323,3 +327,4 @@ def test_build_target_follows_included_headers(tmp_path):
     assert all(a != b for a, b in zip(before, after))
     assert all(os.path.basename(a).startswith(os.path.basename(b)[:-len(
         b.split("_")[-1])]) for a, b in zip(after, before))
+    assert _build._target(alone) == alone_before
