@@ -70,15 +70,22 @@ Phases, each of which raises on failure (nothing is caught and continued):
    ``gt_d_s_sweep`` (7 d x 3 s at p = 0.5, reps = 3), finite, no launch.
    Per sweep: configurations, runs, wall, s/run, launches, peak memory;
 9. AltSVM at MovieLens-100k's users and items (n = 943, m = 1682, f = 20):
-   (a) the DCD phase kernel K2 against its plain version on the card, and
-   against the plain version on the CPU, from the same state and picks
-   (T = 4,096 planted comparisons, one item phase and one user phase of 3
-   sweeps each), U, V, alpha and beta per tensor, with K2's time per phase
-   and per step beside the plain version's and the bound; (b)
-   ``init_altsvm`` -> ``train_altsvm`` at the defaults (10 epochs,
-   lambda = 0.1, C = 1, 3 sweeps) on T = 100,000 planted comparisons: 20
-   K2 launches, finite state, pairwise accuracy above 0.8, the wall, ms
-   per phase and us per coordinate step;
+   (a) the DCD phase kernel K2 bit-equal to its plain version on the card
+   and on the CPU, from the same state and picks (T = 4,096 planted
+   comparisons, one item phase and one user phase of 3 sweeps each), at
+   f = 20 (there also at every table placement), at f = 64 (the tables
+   past a block's shared memory), on a skewed set (items drawn with
+   probability proportional to 1 / rank) and with 5 % of comparisons
+   k = j, with K2's time beside the plain version's; (b) each phase at
+   T = 100,000 on the first epoch's inputs bit-equal to the CPU's plain
+   version, K2's ms (and at every table placement), its schedule's ms
+   alone, the chain depth and us per level beside the bound, and the
+   same on a skewed set, whose item phase is held bit-equal to the CPU's
+   plain version too; then ``init_altsvm`` -> ``train_altsvm`` at the
+   defaults (10 epochs, lambda = 0.1, C = 1, 3 sweeps) on T = 100,000
+   planted comparisons: 20 K2 launches and 20 of its schedule, finite
+   state, pairwise accuracy above 0.8, the wall, ms per phase and us per
+   coordinate step;
 10. the chunk pipeline: ``parameter_scan_fast`` at n = m = 1000, d = 2,
    p = 0.2, 30 epochs, 8 s values x 3 reps in chunks of 2 configurations
    (4 chunks) with ``save_path``, ``MFCD_PIPELINE`` = 0, 1, 1, 0: the same
@@ -162,8 +169,9 @@ EPS32 = 2.0 ** -24
 # card the plain version's step is a dozen launches), then at the main
 # path's ALT_T (one comparison per rating of ML-100k) against the CPU's
 # plain version on the first epoch's inputs, then the model at ALT_T.  K2
-# and its plain version sum their dots in one butterfly order and round
-# every operation alike (--fmad=false), so K1's bound applies unwidened.
+# runs the steps out of pick order, each row's writes in pick order, sums
+# its dots in its plain version's butterfly order and rounds every
+# operation alike (--fmad=false): bit-equal, a gate.
 ALT_N, ALT_M, ALT_F = 943, 1682, 20
 ALT_T_CHECK = 4096
 ALT_T = 100_000
@@ -1396,19 +1404,30 @@ def study_phase(smi):
     return launches
 
 
-def planted_comparisons(t: int, seed: int):
+def planted_comparisons(t: int, seed: int, skew: bool = False,
+                        same: float = 0.0):
     """``t`` comparisons of a seeded planted factor model at ALT_N x ALT_M,
     rank ALT_F, drawn as ``tests/test_legacy.py`` draws them: (users, j,
     k, prefs) as int64, int64, int64, int32 numpy arrays, j != k, prefs the
-    sign of u . (v_j - v_k)."""
+    sign of u . (v_j - v_k).  ``skew``: j and k drawn apart, each with
+    probability proportional to 1 / rank (a few items in most
+    comparisons); ``same``: that share of them then made k = j.  A zero
+    score labels +1."""
     rng = np.random.default_rng(seed)
     u_true = rng.normal(size=(ALT_N, ALT_F))
     v_true = rng.normal(size=(ALT_M, ALT_F))
     users = rng.integers(0, ALT_N, t)
-    mj = rng.integers(0, ALT_M, t)
-    mk = (mj + 1 + rng.integers(0, ALT_M - 1, t)) % ALT_M
+    if skew:
+        p = 1.0 / np.arange(1, ALT_M + 1)
+        mj, mk = (rng.choice(ALT_M, t, p=p / p.sum()) for _ in range(2))
+    else:
+        mj = rng.integers(0, ALT_M, t)
+        mk = (mj + 1 + rng.integers(0, ALT_M - 1, t)) % ALT_M
+    if same:
+        mk = np.where(rng.random(t) < same, mj, mk)
     scores = np.sum(u_true[users] * (v_true[mj] - v_true[mk]), axis=1)
-    return users, mj, mk, np.sign(scores).astype(np.int32)
+    prefs = np.sign(scores).astype(np.int32)
+    return users, mj, mk, np.where(prefs == 0, 1, prefs).astype(np.int32)
 
 
 def dcd_bound_ms(phase: str, t: int, steps: int, f: int):
@@ -1434,9 +1453,8 @@ def step_bytes_ms(phase: str, steps: int, f: int) -> float:
 
 
 def dcd_compare(tag, phase, got, refs) -> float:
-    """Hold K2's ``(table, dual)`` against each ``(label, plain result)``,
-    per tensor within KERNEL_RTOL x max|ref| + KERNEL_ATOL; returns the
-    largest max|diff|."""
+    """Hold K2's ``(table, dual)`` bit-equal to each ``(label, result)``
+    (max|diff| 0, a gate); returns the largest max|diff|."""
     names = ("V", "beta") if phase == "items" else ("U", "alpha")
     worst, errs = 0.0, []
     for label, ref in refs:
@@ -1445,15 +1463,13 @@ def dcd_compare(tag, phase, got, refs) -> float:
             if not torch.isfinite(b).all():
                 fail(f"{tag} K2 {phase}: non-finite {name}")
             err = float((a - b).abs().max())
-            scale = float(a.abs().max())
             worst = max(worst, err)
-            errs.append(f"{name} vs {label} plain {err:.3g}/{scale:.3g}")
-            if err > KERNEL_RTOL * scale + KERNEL_ATOL:
-                fail(f"{tag} K2 {phase}: {name} max|diff| {err:.3g} vs the "
-                     f"{label} plain version > {KERNEL_RTOL} x max|ref| "
-                     f"{scale:.3g} + {KERNEL_ATOL}")
-    log(f"  {tag} K2 {phase} phase: max|diff|/max|ref| " + ", ".join(errs)
-        + f" (bound {KERNEL_RTOL} x max|ref| + {KERNEL_ATOL} per tensor)")
+            errs.append(f"{name} vs {label} {err:.3g}")
+            if not torch.equal(a, b):
+                fail(f"{tag} K2 {phase}: {name} differs from {label} "
+                     f"(max|diff| {err:.3g}); it must be bit-equal")
+    log(f"  {tag} K2 {phase} phase: max|diff| " + ", ".join(errs)
+        + " (gate: bit-equal)")
     return worst
 
 
@@ -1461,47 +1477,76 @@ def _on_cpu(args):
     return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
 
 
+def _alt_comparisons(dev, t, seed, **kw):
+    users, mj, mk, prefs = (torch.from_numpy(np.ascontiguousarray(a)).to(
+        dev, torch.int32) for a in planted_comparisons(t, seed, **kw))
+    return users, mj, mk, prefs.float()
+
+
+def chain_depth(phase, picks, comps) -> int:
+    """The phase's chain depth (``altsvm_kernels.dcd_levels``, on the
+    host)."""
+    from mfcd_tpu_torch.ops import altsvm_kernels as ak
+
+    return int(ak.dcd_levels(phase, picks.cpu(),
+                             *(a.cpu() for a in comps[:3])).max())
+
+
+# [9a] The check's cases: (name, f, comparison options).
+ALT_CASES = (("f20", ALT_F, {}), ("f64", 64, {}),
+             ("skewed", ALT_F, {"skew": True}),
+             ("same", ALT_F, {"same": 0.05}))
+
+
 def altsvm_check(dev, smi):
-    """[9a] K2 against its plain version, on the card and on the CPU, from
-    the same state and picks at ALT_T_CHECK comparisons; returns per phase
-    the largest difference, K2's ms and the card's plain ms."""
+    """[9a] K2 bit-equal to its plain version, on the card and on the CPU,
+    from the same state and picks at ALT_T_CHECK comparisons, in each of
+    ALT_CASES (at f = 20 also at every table placement); returns per phase the largest difference, and at f = 20
+    K2's ms and the card's plain ms."""
     from mfcd_tpu_torch.core import prng
     from mfcd_tpu_torch.models import altsvm
     from mfcd_tpu_torch.ops import altsvm_kernels as ak
 
-    users, mj, mk, prefs = (torch.from_numpy(np.ascontiguousarray(a)).to(
-        dev, torch.int32) for a in planted_comparisons(ALT_T_CHECK, 11))
-    prefs = prefs.float()
-    comps = (users, mj, mk, prefs)
-    state = altsvm.init_altsvm(prng.key(0), ALT_N, ALT_M, ALT_F,
-                               ALT_T_CHECK, device=dev)
-    # The epoch's two phases, each from the zero origin, each fed the same
-    # inputs on every side: the item phase U's init, the user phase the
-    # plain item phase's V.
-    dual0 = torch.zeros_like(state.alpha)
-    fixed = state.user_features
-    out = {}
-    for seed, phase, table in (
-            (21, "items", torch.zeros_like(state.movie_features)),
-            (22, "users", torch.zeros_like(state.user_features))):
-        picks = altsvm._picks(prng.key(seed, device=dev), ALT_T_CHECK,
-                              ALT_SWEEPS)
-        args = (phase, table, fixed, dual0, picks, *comps, 0.1, 1.0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = ak.dcd_phase_reference(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        got = ak.dcd_phase(*args)
-        cpu = ak.dcd_phase(*_on_cpu(args))
-        err = dcd_compare("[9a]", phase, got,
-                          (("card", want), ("CPU", cpu)))
-        fixed = want[0]
-        out[phase] = dict(err=err, plain_card_ms=plain_ms,
-                          ms=time_ms(lambda: ak.dcd_phase(*args), warmup=1,
-                                     reps=5))
+    out = {ph: dict(err=0.0) for ph in ak.PHASES}
+    for case, f, kw in ALT_CASES:
+        comps = _alt_comparisons(dev, ALT_T_CHECK, 11, **kw)
+        state = altsvm.init_altsvm(prng.key(0), ALT_N, ALT_M, f,
+                                   ALT_T_CHECK, device=dev)
+        # The epoch's two phases, each from the zero origin, each fed the
+        # same inputs on every side: the item phase U's init, the user
+        # phase the plain item phase's V.
+        dual0 = torch.zeros_like(state.alpha)
+        fixed = state.user_features
+        for seed, phase, table in (
+                (21, "items", torch.zeros_like(state.movie_features)),
+                (22, "users", torch.zeros_like(state.user_features))):
+            picks = altsvm._picks(prng.key(seed, device=dev), ALT_T_CHECK,
+                                  ALT_SWEEPS)
+            args = (phase, table, fixed, dual0, picks, *comps, 0.1, 1.0)
+            mode = ak.dcd_mode(table.shape[0], fixed.shape[0], f)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = ak.dcd_phase_reference(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = ak.dcd_phase(*args)
+            cpu = ak.dcd_phase(*_on_cpu(args))
+            err = dcd_compare(f"[9a] {case} ({mode})", phase, got,
+                              (("the card's plain", want),
+                               ("the CPU's plain", cpu)))
+            if case == "f20":
+                for m in ak.MODES:
+                    err = max(err, dcd_compare(
+                        f"[9a] {case} {m}", phase,
+                        ak._dcd_phase(*args, mode=m),
+                        (("the card's plain", want),)))
+                out[phase].update(plain_card_ms=plain_ms, ms=time_ms(
+                    lambda: ak.dcd_phase(*args), warmup=1, reps=5))
+            out[phase]["err"] = max(out[phase]["err"], err)
+            fixed = want[0]
     steps = ALT_T_CHECK * ALT_SWEEPS
-    log(f"[9a] K2 at n={ALT_N}, m={ALT_M}, f={ALT_F}, T={ALT_T_CHECK}, "
+    log(f"[9a] K2 bit-equal at n={ALT_N}, m={ALT_M}, T={ALT_T_CHECK} in "
+        + ", ".join(c for c, _, _ in ALT_CASES) + f"; at f={ALT_F}, "
         f"{steps} steps a phase: "
         + "; ".join(f"{ph} {o['ms']:.4f} ms ({1e3 * o['ms'] / steps:.4f} us "
                     f"a step), plain on the card {o['plain_card_ms']:.1f} ms"
@@ -1509,24 +1554,48 @@ def altsvm_check(dev, smi):
     return out
 
 
+def _phase_timing(ak, phase, args, rows, placements=False):
+    """K2's ms a phase (the whole ``dcd_phase`` call) and its schedule's ms
+    alone; ``placements``: also the call's ms with the tables forced into
+    each placement of ``MODES`` that fits."""
+    _, table, fixed, _, picks = args[:5]
+    comps, lam = args[5:9], args[9]
+    out = dict(
+        ms=time_ms(lambda: ak.dcd_phase(*args), warmup=1, reps=5),
+        schedule_ms=time_ms(lambda: ak.dcd_schedule(
+            phase, fixed, picks, *comps, lam, rows), warmup=1, reps=5))
+    if placements:
+        shape = (rows, fixed.shape[0], table.shape[1])
+        out["placement_ms"] = {
+            m: time_ms(lambda m=m: ak._dcd_phase(*args, mode=m), warmup=1,
+                       reps=5)
+            for m in ak.MODES if ak.smem_bytes(m, *shape) <= ak.SMEM_BYTES}
+    return out
+
+
 def altsvm_main_shape_check(dev, state, comps, key, smi):
-    """[9b] K2 at the main path's shape against the CPU's plain version,
-    on the first epoch's inputs as ``train_altsvm`` makes them (its keys,
-    picks and zeroed tables and duals; the user phase fed the plain item
-    phase's V); returns per phase the largest difference, K2's ms, the
-    plain version's ms and the bound."""
+    """[9b] K2 at the main path's shape bit-equal to the CPU's plain
+    version, on the first epoch's inputs as ``train_altsvm`` makes them
+    (its keys, picks and zeroed tables and duals; the user phase fed the
+    plain item phase's V), K2 timed at every table placement; then the
+    same phases on a skewed set, the item phase (its chain the deepest)
+    bit-equal to the CPU's plain version too.  Returns per phase the
+    difference, K2's and its schedule's ms, the chain depth, the plain
+    version's ms and the bound."""
     from mfcd_tpu_torch.core import prng
     from mfcd_tpu_torch.models import altsvm
     from mfcd_tpu_torch.ops import altsvm_kernels as ak
 
     k1, k2 = prng.split(prng.split(key.to(dev), ALT_EPOCHS)[0]).unbind(-2)
     dual0 = torch.zeros_like(state.alpha)
-    fixed = state.user_features
     steps = ALT_T * ALT_SWEEPS
+    skewed = _alt_comparisons(dev, ALT_T, 13, skew=True)
     out = {}
+    fixed = fixed_skew = state.user_features
     for phase, pkey, table in (
             ("items", k1, torch.zeros_like(state.movie_features)),
             ("users", k2, torch.zeros_like(state.user_features))):
+        rows = table.shape[0]
         picks = altsvm._picks(pkey, ALT_T, ALT_SWEEPS)
         args = (phase, table, fixed, dual0, picks, *comps, 0.1, 1.0)
         got = ak.dcd_phase(*args)
@@ -1534,17 +1603,39 @@ def altsvm_main_shape_check(dev, state, comps, key, smi):
         t0 = time.perf_counter()
         cpu = ak.dcd_phase(*cpu_args)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = dcd_compare("[9b]", phase, got, (("CPU", cpu),))
-        ms = time_ms(lambda: ak.dcd_phase(*args), warmup=0, reps=3)
+        err = dcd_compare("[9b]", phase, got, (("the CPU's plain", cpu),))
+        timing = _phase_timing(ak, phase, args, rows, placements=True)
+        depth = chain_depth(phase, picks, comps)
         least, by = dcd_bound_ms(phase, ALT_T, steps, ALT_F)
-        out[phase] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=least,
-                          bound_by=by)
+        # The skewed set: its item chain is the deepest, so the item phase
+        # is held against the CPU's plain version as well.
+        sargs = (phase, table, fixed_skew, dual0, picks, *skewed, 0.1, 1.0)
+        sgot = ak.dcd_phase(*sargs)
+        if phase == "items":
+            err = max(err, dcd_compare(
+                "[9b] skewed", phase, sgot,
+                (("the CPU's plain", ak.dcd_phase(*_on_cpu(sargs))),)))
+        skew = dict(_phase_timing(ak, phase, sargs, rows),
+                    chain_depth=chain_depth(phase, picks, skewed),
+                    checked=phase == "items")
+        out[phase] = dict(err=err, plain_ms=plain_ms, bound_ms=least,
+                          bound_by=by, chain_depth=depth, skewed=skew,
+                          **timing)
+        o = out[phase]
         log(f"  [9b] K2 {phase} phase at T={ALT_T}, {steps} steps: "
-            f"{ms:.3f} ms ({1e3 * ms / steps:.4f} us a step), plain on the "
-            f"CPU {plain_ms:.1f} ms; bound {least:.6f} ms ({by}; "
+            f"{o['ms']:.4f} ms ({1e3 * o['ms'] / steps:.5f} us a step; "
+            + ", ".join(f"{m} {ms:.4f}" for m, ms in
+                        o["placement_ms"].items())
+            + f" ms by placement), the schedule alone "
+            f"{o['schedule_ms']:.4f} ms; chain depth {depth} "
+            f"({1e3 * o['ms'] / depth:.3f} us a level); plain on the CPU "
+            f"{plain_ms:.1f} ms; bound {least:.6f} ms ({by}; "
             f"{step_bytes_ms(phase, steps, ALT_F):.6f} ms by the bytes each "
-            f"step touches), a chain of {steps} dependent steps; {smi}")
+            f"step touches); skewed set: {skew['ms']:.4f} ms, schedule "
+            f"{skew['schedule_ms']:.4f}, chain depth {skew['chain_depth']}"
+            f"{', bit-equal to the CPU' if skew['checked'] else ''}; {smi}")
         fixed = cpu[0].to(dev)
+        fixed_skew = sgot[0]
     return out
 
 
@@ -1568,6 +1659,7 @@ def altsvm_phase(dev, smi):
                                         prefs), key, smi)
     torch.cuda.synchronize()
     ak.DCD_LAUNCHES = dict.fromkeys(ak.PHASES, 0)
+    ak.SCHEDULE_LAUNCHES = dict.fromkeys(ak.PHASES, 0)
     t0 = time.perf_counter()
     state = altsvm.train_altsvm(state, key, users, mj, mk, prefs,
                                 num_epochs=ALT_EPOCHS,
@@ -1575,9 +1667,11 @@ def altsvm_phase(dev, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ak.DCD_LAUNCHES)
-    if launches != dict.fromkeys(ak.PHASES, ALT_EPOCHS):
-        fail(f"[9b] train_altsvm launched K2 {launches} times, expected "
-             f"{ALT_EPOCHS} a phase")
+    schedules = dict(ak.SCHEDULE_LAUNCHES)
+    expected = dict.fromkeys(ak.PHASES, ALT_EPOCHS)
+    if launches != expected or schedules != expected:
+        fail(f"[9b] train_altsvm launched K2 {launches} and its schedule "
+             f"{schedules} times, expected {ALT_EPOCHS} a phase")
     if not all(bool(torch.isfinite(a).all()) for a in state):
         fail("[9b] non-finite AltSVM state")
     for name, a in (("alpha", state.alpha), ("beta", state.beta)):
@@ -1589,10 +1683,11 @@ def altsvm_phase(dev, smi):
     steps = ALT_T * ALT_SWEEPS
     phase_ms = 1e3 * wall / sum(launches.values())
     log(f"[9b] train_altsvm n={ALT_N}, m={ALT_M}, f={ALT_F}, T={ALT_T}, "
-        f"{ALT_EPOCHS} epochs x {ALT_SWEEPS} sweeps: {wall:.3f} s, K2 "
-        f"launches {launches}, {phase_ms:.3f} ms a phase "
-        f"({1e3 * phase_ms / steps:.4f} us a step, picks and copies "
-        f"included); pairwise accuracy {acc:.4f}; {smi}")
+        f"{ALT_EPOCHS} epochs x {ALT_SWEEPS} sweeps: {wall:.4f} s, K2 "
+        f"launches {launches}, schedule launches {schedules}, "
+        f"{phase_ms:.4f} ms a phase ({1e3 * phase_ms / steps:.5f} us a "
+        f"step, picks and copies included); pairwise accuracy {acc:.4f}; "
+        f"{smi}")
     log(f"[9] AltSVM: {time.perf_counter() - t_all:.1f} s")
     return [{
         "name": f"altsvm_dcd_phase:{phase}",
@@ -1602,6 +1697,7 @@ def altsvm_phase(dev, smi):
                      else "mfcd_tpu/models/altsvm.py:109"),
         "tpu_kernel": None,
         "launches": launches[phase],
+        "schedule_launches": schedules[phase],
         "max_abs_err": max(small[phase]["err"], full[phase]["err"]),
         "ms": full[phase]["ms"],
         "plain_ms": full[phase]["plain_ms"],
@@ -1609,10 +1705,16 @@ def altsvm_phase(dev, smi):
         "bound_ms": full[phase]["bound_ms"],
         "bound_by": full[phase]["bound_by"],
         "library_ms": None,
+        "schedule_ms": full[phase]["schedule_ms"],
+        "chain_depth": full[phase]["chain_depth"],
+        "us_per_level": 1e3 * full[phase]["ms"] / full[phase]["chain_depth"],
+        "placement_ms": full[phase]["placement_ms"],
+        "skewed": full[phase]["skewed"],
         "shape": {"n": ALT_N, "m": ALT_M, "f": ALT_F, "T": ALT_T,
                   "sweeps": ALT_SWEEPS},
         "us_per_step": 1e3 * full[phase]["ms"] / steps,
         "check_T": ALT_T_CHECK,
+        "check_cases": [c for c, _, _ in ALT_CASES],
         "check_ms": small[phase]["ms"],
         "check_plain_card_ms": small[phase]["plain_card_ms"],
         "train_s": wall,

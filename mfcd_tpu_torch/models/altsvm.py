@@ -55,8 +55,10 @@ def predict(state: AltSVMState, users, movie_j, movie_k) -> torch.Tensor:
 
 
 def _picks(key, t: int, sweeps: int) -> torch.Tensor:
-    """Random visiting order: ``sweeps`` whole-dataset permutations, int32."""
-    return prng.permutation(prng.split(key, sweeps), t).reshape(-1)
+    """Random visiting order: ``sweeps`` whole-dataset permutations, int32,
+    contiguous (at t = 1 the permutation is a broadcast view)."""
+    picks = prng.permutation(prng.split(key, sweeps), t)
+    return picks.reshape(-1).contiguous()
 
 
 def rebuild_users(state, users, movie_j, movie_k, prefs, lam):

@@ -179,15 +179,16 @@ def test_rebuild_allclose():
 
 @pytest.mark.parametrize("f", [4, 20, 33, 70])
 def test_warp_dot_sums_in_the_kernels_order(f):
-    """Lane l sums components l, l + 32, ... from 0, then the 32 lanes fold
-    in halves: bit-equal to that order in numpy float32, and within float32
-    rounding of the float64 dot."""
+    """Lane l of a step's group sums components l, l + GROUP, ... from 0,
+    then the GROUP lanes fold in halves: bit-equal to that order in numpy
+    float32, and within float32 rounding of the float64 dot."""
     g = np.random.default_rng(f)
     a, b = (g.standard_normal(f).astype(np.float32) for _ in range(2))
-    lanes = np.zeros(32, np.float32)
-    prod = np.zeros(-(-f // 32) * 32, np.float32)
+    width = AK.GROUP
+    lanes = np.zeros(width, np.float32)
+    prod = np.zeros(-(-f // width) * width, np.float32)
     prod[:f] = a * b
-    for part in prod.reshape(-1, 32):
+    for part in prod.reshape(-1, width):
         lanes = lanes + part
     while lanes.size > 1:
         lanes = lanes[:lanes.size // 2] + lanes[lanes.size // 2:]

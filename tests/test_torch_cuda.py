@@ -20,7 +20,10 @@ check of each kept stage's work) agree to rtol 1e-5 / atol 1e-6.  K1 has
 no float atomics: two launches, and launches at different launch shapes
 (cluster sizes, one 512-thread block per run, packed), agree bit for bit;
 so do P1's and P2's state and loss (their ``alive`` sums follow the row
-split, and are held by the bound).
+split, and are held by the bound).  K2 runs a phase's steps out of pick
+order, each row's writes in pick order, and sums and rounds as its plain
+version does: bit-equal to it on the card and the CPU, at every launch
+shape, and its schedule equal to the plain schedule.
 """
 
 import math
@@ -548,55 +551,150 @@ def test_study_sweep_on_the_card_reaches_k1_and_matches_the_cpu():
                                            rtol=2e-3, atol=2e-3, err_msg=k)
 
 
-def _comparisons(dev, n, m, t, seed):
+def _comparisons(dev, n, m, t, seed, skew=False, same=0.0):
+    """``t`` comparisons over n users and m items: j and k uniform with
+    k != j, or (``skew``) each drawn with probability proportional to
+    1 / rank (a few items in most comparisons); then a share ``same`` of
+    them made k = j."""
     g = np.random.default_rng(seed)
     users = g.integers(0, n, t)
-    mj = g.integers(0, m, t)
-    mk = (mj + 1 + g.integers(0, m - 1, t)) % m
+    if skew:
+        p = 1.0 / np.arange(1, m + 1)
+        mj, mk = (g.choice(m, t, p=p / p.sum()) for _ in range(2))
+    else:
+        mj = g.integers(0, m, t)
+        mk = (mj + 1 + g.integers(0, m - 1, t)) % m
+    if same:
+        mk = np.where(g.random(t) < same, mj, mk)
     prefs = np.where(g.random(t) < 0.5, 1.0, -1.0)
     return tuple(torch.as_tensor(a, dtype=dt, device=dev) for a, dt in (
         (users, torch.int32), (mj, torch.int32), (mk, torch.int32),
         (prefs, torch.float32)))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("phase", ["items", "users"])
-@pytest.mark.parametrize("f", [20, 45])
-def test_dcd_kernel_matches_plain_version(phase, f):
-    """K2 against its plain version on the card and on the CPU: one phase of
-    3 sweeps over 300 comparisons, from a random table (items: V, users:
-    U) and duals in [0, 1]; f = 45 gives lanes two components.  Both sum in
-    one butterfly order and round alike: within chip_smoke.py's 1e-5 x
-    max|ref| + 1e-12 per tensor; the inputs are left as they were."""
+def _dcd_args(dev, phase, n, m, f, t, seed, **kw):
+    """One phase's arguments from a random table (items: V, users: U),
+    duals in [0, 1] and 3 sweeps of picks."""
     from mfcd_tpu_torch.core import prng
     from mfcd_tpu_torch.models import altsvm
-    from mfcd_tpu_torch.ops import altsvm_kernels as AK
 
-    dev = _card()
-    n, m, t = 30, 40, 300
-    g = np.random.default_rng(f)
+    g = np.random.default_rng(seed)
     rows = {"items": (m, n), "users": (n, m)}[phase]
     table, fixed = (torch.as_tensor(g.standard_normal((r, f)),
                                     dtype=torch.float32, device=dev)
                     for r in rows)
     dual = torch.as_tensor(g.random(t), dtype=torch.float32, device=dev)
-    picks = altsvm._picks(prng.key(f, device=dev), t, 3)
-    args = (phase, table, fixed, dual, picks, *_comparisons(dev, n, m, t, f),
-            0.1, 1.0)
+    picks = altsvm._picks(prng.key(seed, device=dev), t, 3)
+    return (phase, table, fixed, dual, picks,
+            *_comparisons(dev, n, m, t, seed, **kw), 0.1, 1.0)
+
+
+def _assert_bit_equal(ref, got):
+    for a, b in zip(ref, got):
+        assert torch.equal(a.to(b.device), b), float(
+            (a.to(b.device) - b).abs().max())
+
+
+# (n, m, f, T, comparisons): f = 7 leaves some of a lane's register-held
+# components empty; f = 45 reads the rows twice (no components held);
+# f = 32 at MovieLens-100k's 943 x 1682 leaves the written table alone in
+# shared memory, and f = 64 puts either table past it (the global-table
+# instantiation); a 3-row written table makes
+# nearly every step wait on the one before; the skewed set lengthens the
+# item chain; "same" has a tenth of its comparisons with k == j.
+DCD_CASES = {
+    "f7": (30, 40, 7, 300, {}),
+    "f20": (30, 40, 20, 300, {}),
+    "f45": (30, 40, 45, 300, {}),
+    "f32": (943, 1682, 32, 300, {}),
+    "f64": (943, 1682, 64, 300, {}),
+    "three_rows": (3, 3, 20, 300, {}),
+    "skewed": (30, 400, 20, 1000, {"skew": True}),
+    "same": (30, 40, 20, 300, {"same": 0.1}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["items", "users"])
+@pytest.mark.parametrize("case", list(DCD_CASES))
+def test_dcd_kernel_matches_plain_version(phase, case):
+    """K2 against its plain version on the card and on the CPU: one phase of
+    3 sweeps, from a random table and duals in [0, 1].  The kernel runs the
+    steps out of pick order, each row's writes in pick order, and sums and
+    rounds as the plain version does: bit-equal; the inputs are left as
+    they were, one launch of each kernel counted."""
+    from mfcd_tpu_torch.ops import altsvm_kernels as AK
+
+    dev = _card()
+    n, m, f, t, kw = DCD_CASES[case]
+    args = _dcd_args(dev, phase, n, m, f, t, f + t, **kw)
+    table, dual = args[1], args[3]
+    if case in ("f32", "f64"):
+        assert AK.dcd_mode(table.shape[0], args[2].shape[0], f) == {
+            "f32": "written", "f64": "global"}[case]
     keep = [table.clone(), dual.clone()]
     want = AK.dcd_phase_reference(*args)
     cpu = AK.dcd_phase(*(a.cpu() if isinstance(a, torch.Tensor) else a
                          for a in args))
-    before = dict(AK.DCD_LAUNCHES)
+    before = dict(AK.DCD_LAUNCHES), dict(AK.SCHEDULE_LAUNCHES)
     got = AK.dcd_phase(*args)
     torch.cuda.synchronize()
-    assert AK.DCD_LAUNCHES == dict(before, **{phase: before[phase] + 1})
+    for count, was in zip((AK.DCD_LAUNCHES, AK.SCHEDULE_LAUNCHES), before):
+        assert count == dict(was, **{phase: was[phase] + 1})
     assert torch.equal(keep[0], table) and torch.equal(keep[1], dual)
-    for ref in (want, cpu):
-        for a, b in zip(ref, got):
-            a = a.to(dev)
-            err = float((a - b).abs().max())
-            assert err <= 1e-5 * float(a.abs().max()) + 1e-12, err
+    _assert_bit_equal(want, got)
+    _assert_bit_equal(cpu, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["items", "users"])
+def test_dcd_launch_shapes_bit_equal(phase):
+    """Every table placement, forced, at f = 20 (components held in
+    registers) and f = 24 (rows read twice): the same bits as the CPU's
+    plain version, on a skewed set with some k == j."""
+    from mfcd_tpu_torch.ops import altsvm_kernels as AK
+
+    dev = _card()
+    for f in (20, 24):
+        args = _dcd_args(dev, phase, 20, 50, f, 500, 3, skew=True,
+                         same=0.05)
+        cpu = AK.dcd_phase(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in args))
+        for mode in AK.MODES:
+            _assert_bit_equal(cpu, AK._dcd_phase(*args, mode=mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["items", "users"])
+@pytest.mark.parametrize("t", [1, 37, 5000])
+def test_dcd_schedule_matches_reference(phase, t):
+    """The schedule's kernels against the plain records (comparison, label,
+    versions, curvature bits), over one chunk and over many (t = 5000: 59
+    warps for users, 118 for items), on a skewed set with some k == j."""
+    from mfcd_tpu_torch.ops import altsvm_kernels as AK
+
+    dev = _card()
+    args = _dcd_args(dev, phase, 20, 50, 20, t, t, skew=True, same=0.1)
+    fixed, picks, ints, prefs = args[2], args[4], args[5:8], args[8]
+    rows = args[1].shape[0]
+    got = AK.dcd_schedule(phase, fixed, picks, *ints, prefs, 0.1, rows)
+    want = AK.dcd_records_reference(phase, *(a.cpu() for a in (
+        fixed, picks, *ints, prefs)), 0.1)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_dcd_phase_raises_where_a_launch_does_not_fit():
+    """A forced placement past a block's shared memory raises: nothing
+    falls back to another launch."""
+    from mfcd_tpu_torch.ops import altsvm_kernels as AK
+
+    dev = _card()
+    args = _dcd_args(dev, "users", 943, 1682, 64, 50, 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        AK._dcd_phase(*args, mode="both")
+    with pytest.raises(ValueError, match="does not fit"):
+        AK._dcd_phase(*args, mode="written")
 
 
 @pytest.mark.cuda
