@@ -92,7 +92,26 @@ Phases, each of which raises on failure (nothing is caught and continued):
    params in the same order, the same results (bit-equal, or within [5]'s
    bound where two sequential passes differ on the card), 30 K1 launches
    per chunk; s/run off and on, peak memory; and the TPU's decision
-   artifact leaves the pipeline off with the env var unset.
+   artifact leaves the pipeline off with the env var unset;
+11. the mesh (``mfcd_tpu_torch.parallel``), in ``torch.distributed`` jobs
+   started by the port's launcher (kernels built here first, ranks
+   spawned): (a) the (grid, data, tp)-sharded step at the canonical width
+   (n = m = 1000, d = 2, bs = 64, G = the grid size, lr 1e-3, wd 5e-6, 30
+   steps), one NCCL rank per card (mesh ``factor_mesh`` of the card count:
+   (1, 1, 1) on one card) and 2 gloo ranks sharing the card at (1, 2, 1),
+   (1, 1, 2) and (2, 1, 1), each against the unsharded step on the card
+   (loss rtol 1e-5; U, V, mu, nu rtol 1e-4, atol 1e-6); (b)
+   ``parameter_scan_fast(mesh=make_sweep_mesh())`` on [4b]'s bench bucket
+   at 2 gloo ranks (and one NCCL rank per card where there are more
+   cards), 30 K1 launches a rank, against [4b]'s results; (c)
+   ``strategies_p_sweep(mesh=..., fast=True)`` for random at [8a]'s shape
+   over 2 gloo ranks against [8a]'s pickle, written by rank 0 alone, 30 K1
+   launches a rank per chunk.  (b) and (c) are bit-equal on every key but
+   the metric block's whole-matrix reductions, which the card rounds by
+   the run count of a call (``dryrun_multichip.ROUNDED_KEYS``, within
+   rtol 1e-5, atol 1e-5, svd_error_scaled on its square).  Per case: wall
+   and s/run (or ms/step) sharded and unsharded, ranks, backend, peak
+   memory per rank.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -182,6 +201,12 @@ ALT_ACC_MIN = 0.8
 PIPE_GRID = dict(n=1000, m=1000, d=2, p=0.2,
                  s=[0.5, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0], lr=1e-3,
                  weight_decay=5e-6, num_epochs=30, reps=3, max_bucket=2)
+# [11] The sharded step: 30 steps at the canonical width and lr / wd; the
+# gloo meshes of 2 ranks sharing the card (NCCL takes one rank per card).
+MESH_STEPS = 30
+MESH_LR, MESH_WD = 1e-3, 5e-6
+GLOO_MESHES = ((1, 2, 1), (1, 1, 2), (2, 1, 1))
+MESH_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -758,6 +783,7 @@ def fast_path_phase():
         + ", ".join(f"{k} {x:.3g}" for k, x in top)
         + f"; peak device memory {peak / runs / 1e6:.1f} MB/run, "
         f"estimated {est / 1e6:.1f} MB/run")
+    return dict(entries=saved, wall=wall_fast, runs=runs, peak=peak)
 
 
 def _split_rows(sp, r):
@@ -1296,7 +1322,7 @@ def study_phase(smi):
     for gmm (10 s values, one bucket) and its resume, which must launch
     nothing and leave the pickle's bytes as they were, (d) ``gt_d_s_sweep``
     (7 d x 3 s at p = 0.5, reps = 3), no K1 launch.  Returns the K1
-    launches of each call."""
+    launches of each call, and (a)'s entries, wall, chunks and peak."""
     from mfcd_tpu_torch.experiments import runs
 
     t_all = time.perf_counter()
@@ -1329,6 +1355,7 @@ def study_phase(smi):
             fail(f"[8a] {k1} K1 launches for {chunks} chunks, expected 30 "
                  f"per chunk")
         launches["8a"] = k1
+        cell18 = dict(entries=fast, wall=wall, chunks=chunks, peak=peak)
         report("8a", f"strategies_p_sweep random, fast, {chunks} chunks, "
                f"accuracy {acc:.4f} at p = 0.2", len(fast), 1, wall, k1, peak)
 
@@ -1401,7 +1428,7 @@ def study_phase(smi):
         report("8d", f"gt_d_s_sweep, gt_accuracy {min(accs):.4f}-"
                f"{max(accs):.4f}", len(entries), 3, wall, k1, peak)
     log(f"[8] study sweeps: {time.perf_counter() - t_all:.1f} s")
-    return launches
+    return launches, cell18
 
 
 def planted_comparisons(t: int, seed: int, skew: bool = False,
@@ -1802,6 +1829,214 @@ def pipeline_phase(smi):
                 launches=[p["k1"] for p in passes])
 
 
+def mesh_rank(tasks, out_dir):
+    """One rank of a [11] job: each task's outputs, with this rank's K1
+    launches, wall and peak device bytes around it.  Tasks: ("steps",
+    label, shape, state, batches) the sharded step; ("sweep", label,
+    grid) the bench bucket over ``make_sweep_mesh()``, twice (the rank's
+    first call pays its lazy kernel loads and library handles; the second,
+    ``label_warm``, does not); ("cell18", label) ``strategies_p_sweep``
+    for random into ``out_dir``, with the pickle writes counted."""
+    import torch.distributed as dist
+
+    from mfcd_tpu_torch.experiments import runs
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.scripts.dryrun_multichip import sharded_steps
+    from mfcd_tpu_torch.sweep import batched
+
+    out = {}
+    for task in tasks:
+        kind, label = task[0], task[1]
+        if kind == "steps":
+            out[label] = sharded_steps(task[2], task[3], task[4], MESH_LR,
+                                       MESH_WD, device="cuda")
+            continue
+        for rep in range(2 if kind == "sweep" else 1):
+            writes = []
+            append = batched.append_results
+            batched.append_results = lambda *a: (writes.append(1),
+                                                 append(*a))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.EPOCH_LAUNCHES = 0
+            t0 = time.perf_counter()
+            try:
+                if kind == "sweep":
+                    got = batched.parameter_scan_fast(
+                        mesh=batched.make_sweep_mesh(), **task[2])
+                else:
+                    runs.strategies_p_sweep(
+                        out=os.path.join(out_dir, "sp"), scale=1.0, reps=1,
+                        strategies=("random",), fast=True,
+                        mesh=batched.make_sweep_mesh())
+                    got = None
+                torch.cuda.synchronize()
+            finally:
+                batched.append_results = append
+            out[label + ("_warm" if rep else "")] = dict(
+                results=got, wall=time.perf_counter() - t0,
+                k1=kernels.EPOCH_LAUNCHES, writes=len(writes),
+                peak=torch.cuda.max_memory_allocated())
+    out["rank"] = (dist.get_rank(), dist.get_backend())
+    return out
+
+
+def mesh_phase(smi, fast_ref, cell18_ref):
+    """[11] The multi-device layer on the card, in ``torch.distributed``
+    jobs of the port's launcher (kernels built here, ranks spawned): (a)
+    the (grid, data, tp)-sharded step at the canonical width over 30
+    steps, one NCCL rank per card and gloo ranks sharing the card at
+    (1, 2, 1), (1, 1, 2) and (2, 1, 1), each against the unsharded step on
+    the card; (b) [4b]'s bench bucket over ``make_sweep_mesh()`` at 2 gloo
+    ranks (and one NCCL rank per card where there are more cards), against
+    [4b]'s results; (c) cell 18 for random over 2 gloo ranks against
+    [8a]'s pickle, written by rank 0 alone.  Returns K1's launches per
+    rank in (b) and (c)."""
+    import mfcd_tpu_torch.scripts.dryrun_multichip as dm
+    from mfcd_tpu_torch.parallel.mesh import factor_mesh
+    from mfcd_tpu_torch.parallel.multihost import launch
+
+    t_all = time.perf_counter()
+    cards = torch.cuda.device_count()
+    bench = dict(CANON, s=[5.0, 6.0])
+    n, m, d, bs = CANON["n"], CANON["m"], CANON["d"], 64
+
+    def step_task(shape):
+        rs = np.random.default_rng(11)
+        state = dm.toy_batch(shape[0], n, m, d, bs, seed=sum(shape))
+        batches = [dm.batch_of(rs, shape[0], n, m, bs)
+                   for _ in range(MESH_STEPS)]
+        return ("steps", f"11a {shape}", tuple(shape), state, batches)
+
+    jobs = {"nccl": [step_task(factor_mesh(cards))],
+            "gloo": [step_task(sh) for sh in GLOO_MESHES]
+            + [("sweep", "11b", bench), ("cell18", "11c")]}
+    if cards > 1:
+        jobs["nccl"].append(("sweep", "11b", bench))
+    outs = {}
+    with tempfile.TemporaryDirectory(prefix="mfcd_chip_smoke_") as tmp:
+        for backend, ranks in (("nccl", cards), ("gloo", 2)):
+            t0 = time.perf_counter()
+            outs[backend] = launch(mesh_rank, ranks,
+                                   args=(jobs[backend], tmp),
+                                   device="cuda", backend=backend,
+                                   timeout_s=MESH_TIMEOUT_S)
+            log(f"[11] {backend} job: {ranks} rank(s) on {cards} card(s), "
+                f"{time.perf_counter() - t0:.1f} s with the spawn")
+        sharded_cell = _load(os.path.join(tmp, "sp_random.pkl"))
+
+    # (a) each mesh against the unsharded step on the card.
+    for backend, tasks in jobs.items():
+        for task in tasks:
+            if task[0] != "steps":
+                continue
+            label, shape = task[1], task[2]
+            want = dm.plain_steps(task[3], task[4], MESH_LR, MESH_WD,
+                                  device="cuda")
+            got = [o[label] for o in outs[backend]]
+            errs = dm.compare_steps(got[0], want, f"[{label}]")
+            for other in got[1:]:
+                for k in ("U", "V", "loss"):
+                    if not np.array_equal(other[k], got[0][k]):
+                        fail(f"[{label}] the ranks disagree on {k}")
+            log(f"[{label}] sharded step, {backend}, {len(got)} rank(s), G "
+                f"= {shape[0]}: {MESH_STEPS} steps in "
+                + ", ".join(f"{o['wall']:.4f}" for o in got)
+                + f" s a rank ({1e3 * max(o['wall'] for o in got) / MESH_STEPS:.3f}"
+                f" ms/step), unsharded {want['wall']:.4f} s "
+                f"({1e3 * want['wall'] / MESH_STEPS:.3f} ms/step); peak "
+                + ", ".join(f"{o['peak'] / 1e6:.2f}" for o in got)
+                + f" MB a rank, unsharded {want['peak'] / 1e6:.2f} MB; loss "
+                f"within rtol {dm.LOSS_RTOL}, U V mu nu within rtol "
+                f"{dm.STATE_RTOL}, atol {dm.STATE_ATOL} (largest |diff| "
+                + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                + f"); {smi}")
+
+    # (b) the bench bucket against [4b], cold and warm.
+    launches = {}
+    runs_b = fast_ref["runs"]
+    for backend in outs:
+        if "11b" not in outs[backend][0]:
+            continue
+        gaps = {}
+        for label in ("11b", "11b_warm"):
+            got = [o[label] for o in outs[backend]]
+            for r, o in enumerate(got):
+                if [e["params"] for e in o["results"]] != \
+                        [e["params"] for e in fast_ref["entries"]]:
+                    fail(f"[{label}] {backend} rank {r}: params differ from "
+                         "[4b]'s")
+                for k, v in dm.compare_results(
+                        [e["results"] for e in o["results"]],
+                        [e["results"] for e in fast_ref["entries"]],
+                        f"[{label}] {backend} rank {r} vs [4b]",
+                        card=True).items():
+                    gaps[k] = max(gaps.get(k, 0.0), v)
+                if o["k1"] != CANON["num_epochs"]:
+                    fail(f"[{label}] {backend} rank {r}: {o['k1']} K1 "
+                         f"launches, expected {CANON['num_epochs']}")
+            launches[f"{label}_{backend}"] = [o["k1"] for o in got]
+        cold = max(o["wall"] for o in (o["11b"] for o in outs[backend]))
+        warm = max(o["wall"] for o in (o["11b_warm"]
+                                       for o in outs[backend]))
+        peaks = [o["11b_warm"]["peak"] for o in outs[backend]]
+        log(f"[11b] parameter_scan_fast over make_sweep_mesh(), {backend}, "
+            f"{len(peaks)} ranks: {runs_b} runs in {warm:.3f} s warm "
+            f"({warm / runs_b:.4f} s/run; a rank's first call {cold:.3f} s), "
+            f"[4b] unsharded {fast_ref['wall']:.3f} s "
+            f"({fast_ref['wall'] / runs_b:.4f} s/run)"
+            + ("; the ranks share one card, so this is correctness and "
+               "overhead, not scaling" if len(peaks) > cards else "")
+            + f"; K1 launches a rank {launches[f'11b_{backend}']} and "
+            f"{launches[f'11b_warm_{backend}']}; peak "
+            + ", ".join(f"{p / 1e6:.1f}" for p in peaks)
+            + f" MB a rank, [4b] {fast_ref['peak'] / 1e6:.1f} MB; every key "
+            "bit-equal to [4b]'s but the metric block's: "
+            + _gap_text(gaps) + f"; {smi}")
+
+    # (c) cell 18 against [8a]'s pickle.
+    got = [o["11c"] for o in outs["gloo"]]
+    ref = cell18_ref["entries"]
+    if [e["params"] for e in sharded_cell] != [e["params"] for e in ref]:
+        fail("[11c] the sharded pickle's params differ from [8a]'s")
+    gaps = dm.compare_results([e["results"] for e in sharded_cell],
+                              [e["results"] for e in ref],
+                              "[11c] vs [8a]", card=True)
+    chunks = cell18_ref["chunks"]
+    if [o["writes"] for o in got] != [chunks, 0]:
+        fail(f"[11c] pickle writes by rank {[o['writes'] for o in got]}, "
+             f"expected {chunks} by rank 0 alone")
+    if any(o["k1"] != 30 * chunks for o in got):
+        fail(f"[11c] K1 launches a rank {[o['k1'] for o in got]}, expected "
+             f"30 for each of {chunks} chunks")
+    launches["11c_gloo"] = [o["k1"] for o in got]
+    wall = max(o["wall"] for o in got)
+    log(f"[11c] strategies_p_sweep random over 2 gloo ranks: "
+        f"{len(ref)} runs in {wall:.3f} s ({wall / len(ref):.4f} s/run), "
+        f"[8a] unsharded {cell18_ref['wall']:.3f} s "
+        f"({cell18_ref['wall'] / len(ref):.4f} s/run); {chunks} chunks, "
+        f"K1 launches a rank {launches['11c_gloo']}, pickle written by rank 0"
+        f" alone; peak " + ", ".join(f"{o['peak'] / 1e6:.1f}" for o in got)
+        + f" MB a rank, [8a] {cell18_ref['peak'] / 1e6:.1f} MB; every key "
+        "bit-equal to [8a]'s but the metric block's: " + _gap_text(gaps)
+        + f"; {smi}")
+    log(f"[11] mesh: {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
+def _gap_text(gaps) -> str:
+    """The rounded keys' largest |diff|, or that there was none."""
+    from mfcd_tpu_torch.scripts.dryrun_multichip import (ROUNDED_ATOL,
+                                                         ROUNDED_RTOL)
+
+    moved = {k: v for k, v in gaps.items() if v}
+    if not moved:
+        return "bit-equal too"
+    return (", ".join(f"{k} {v:.3g}" for k, v in sorted(moved.items()))
+            + f" (bound rtol {ROUNDED_RTOL}, atol {ROUNDED_ATOL}; "
+            "svd_error_scaled squared)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1877,7 +2112,7 @@ def main() -> int:
         f"{float(np.mean(res['gt_accuracy'])):.4f}, final train loss "
         f"{float(np.mean([c[-1] for c in res['train_losses']])):.4f}")
 
-    fast_path_phase()
+    fast_ref = fast_path_phase()
 
     # [5] Card vs CPU at the same shape, 2 epochs.
     short = dict(CANON, num_epochs=2, reps=1)
@@ -1911,13 +2146,17 @@ def main() -> int:
     log(f"[7] generators and ground truth: {time.perf_counter() - t0:.1f} s")
 
     # [8] The study's sweeps at full width.
-    study_launches = study_phase(smi)
+    study_launches, cell18_ref = study_phase(smi)
 
     # [9] AltSVM: K2 against its plain version, then the model at full size.
     alt_entries = altsvm_phase(dev, smi)
 
     # [10] The chunk pipeline off and on.
     pipe = pipeline_phase(smi)
+
+    # [11] The mesh: the sharded step, the grid-sharded sweep and cell 18
+    # over ranks of torch.distributed jobs on the card.
+    mesh_launches = mesh_phase(smi, fast_ref, cell18_ref)
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
@@ -1935,6 +2174,7 @@ def main() -> int:
         "strategy_launches": strategy_launches,
         "generation_launches": generation_launches,
         "study_launches": study_launches,
+        "mesh_launches": mesh_launches,
         "cluster": timings[0]["cluster"],
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,

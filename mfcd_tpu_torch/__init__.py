@@ -7,9 +7,13 @@ hand-written CUDA kernel (``ops/csrc/epoch_kernel.cu``) and the
 kernel-split profiler's two kernels beside it (``ops/kernel_split.py``).
 Every generation mode and sampling strategy of the JAX package runs, and
 so does the ground-truth-only oracle.  The entry points run on the card
-unless the caller passes ``device="cpu"``.  The study's sweeps are in
-``experiments.runs``; its figures (``viz``, ``experiments.plots``) need
-matplotlib and are not imported here.  The package imports neither jax nor
+unless the caller passes ``device="cpu"``.  ``parallel`` runs them over
+several devices on ``torch.distributed``, one process per device: the
+(grid, data, tp)-sharded training step, and ``parameter_scan_fast`` with
+``mesh=`` sharding each chunk's configurations over the ranks
+(``parallel.multihost`` brings the job up and launches local ranks).
+The study's sweeps are in ``experiments.runs``; its figures (``viz``,
+``experiments.plots``) need matplotlib and are not imported here.  The package imports neither jax nor
 ``mfcd_tpu``; kernels are built with ``nvcc`` at first use.
 """
 

@@ -14,6 +14,7 @@ from mfcd_tpu_torch.data.btl import LabeledSplit
 from mfcd_tpu_torch.models.altsvm import AltSVMState
 from mfcd_tpu_torch.models.mf import MFParams
 from mfcd_tpu_torch.ops.kernels import EpochState
+from mfcd_tpu_torch.ops.optim import AdamState
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -24,6 +25,15 @@ def _t(a, device, dtype=None) -> torch.Tensor:
 def params_from_jax(U, V, device="cpu") -> MFParams:
     """``MFParams`` (U ``[..., n, d]``, V ``[..., m, d]``) as float32."""
     return MFParams(_t(U, device, torch.float32), _t(V, device, torch.float32))
+
+
+def adam_state_from_jax(mu, nu, step, device="cpu") -> AdamState:
+    """``AdamState`` from JAX's ``AdamState(mu=MFParams, nu=MFParams,
+    step)``: ``mu`` and ``nu`` as (U, V) pairs (float32, any leading grid
+    axis), ``step`` int32."""
+    return AdamState(tuple(_t(a, device, torch.float32) for a in mu),
+                     tuple(_t(a, device, torch.float32) for a in nu),
+                     _t(step, device, torch.int32))
 
 
 def epoch_state_from_jax(u_t, v_t, mu_u, nu_u, mu_v, nu_v,

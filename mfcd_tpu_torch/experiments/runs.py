@@ -6,7 +6,8 @@ one canonical experiment grid of the reference notebook (cells 3-23) with
 the notebook's literal parameters — see PARITY.md for the cell-by-cell
 audit table.  ``scale`` shrinks the matrix size so CI can run miniature
 versions of the same sweeps; ``fast=True`` routes through the bucketed
-engine (``parameter_scan_fast``); the default is the sequential-compatible
+engine (``parameter_scan_fast``), which ``strategies_p_sweep`` can shard
+over a mesh of ranks (``mesh=``); the default is the sequential-compatible
 ``parameter_scan``.  ``device`` reaches whichever scan a sweep function
 calls (``None``: the card).
 
@@ -33,14 +34,10 @@ from mfcd_tpu_torch.sweep.ground_truth import parameter_scan_ground_truth
 
 def _scan(fast, **kw):
     mesh = kw.pop("mesh", None)
-    if mesh is not None:
-        if not fast:
-            raise ValueError("mesh-sharded execution requires fast=True")
-        raise NotImplementedError(
-            "mesh-sharded execution is not ported yet: the multi-device "
-            "item (M16) of ROADMAP.md's Queue 1")
     if fast:
-        return parameter_scan_fast(**kw)
+        return parameter_scan_fast(mesh=mesh, **kw)
+    if mesh is not None:
+        raise ValueError("mesh-sharded execution requires fast=True")
     return parameter_scan(**kw)
 
 
@@ -281,9 +278,11 @@ def strategies_p_sweep(out=None, save_every=5, fast=False, scale=1.0,
                        resume=False, mesh=None, device=None):
     """Runs.ipynb cell 18: 7 strategies x p at s=5, soft labels.
 
-    ``mesh`` raises: with ``fast=False`` as the JAX function does, and with
-    ``fast=True`` because mesh-sharded execution is not ported yet
-    (ROADMAP.md, Queue 1, M16).
+    ``mesh`` (requires ``fast=True``; ``sweep.batched.make_sweep_mesh``,
+    every rank of the job calling this with the same arguments) shards
+    every chunk over the ranks; rank 0 writes the pickles, the same bits
+    as without a mesh (``mfcd_tpu_torch/scripts/validate_sharded_cell.py``
+    checks it).  ``device`` defaults to the mesh's.
     """
     n = m = int(1000 * scale) or 10
     p_list = np.round(np.logspace(-2, np.log10(0.2), 20), 4).tolist()

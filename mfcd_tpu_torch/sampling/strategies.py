@@ -12,7 +12,10 @@ Given the same X, the integer maps (random, proximity, top_k, the cascade)
 are bit-equal to the JAX package's.  Where a float decides a selection
 (the variance and popularity CDFs, the margin window, the k-means
 assignments, the randomized-SVD norms, the cosine neighbours), a value
-within float32 rounding of a boundary may fall the other way.
+within float32 rounding of a boundary may fall the other way.  The
+variance and popularity CDFs are summed and scanned in fixed point
+(``_exact_cdf``), so a run's draws do not depend on the runs beside it
+on the card, where torch splits a float sum or scan by the row count.
 """
 
 from __future__ import annotations
@@ -52,6 +55,25 @@ def _x_at(x: torch.Tensor, u, i) -> torch.Tensor:
     m = x.shape[-1]
     return _take(x.reshape(x.shape[0], -1),
                  u.to(torch.int64) * m + i.to(torch.int64))
+
+
+def _exact_cdf(weights: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The probabilities and CDF ``[R, m]`` (float32) of nonnegative
+    weights, the same bits whatever R and on either device.
+
+    On the card torch splits a row's float sum and scan by the number of
+    rows, so a run's CDF would depend on the chunk around it.  Here each
+    row is scaled by a power of two to int64 fixed point below 2^62 (its
+    max, which is exact in any order, sets the scale), summed and scanned
+    exactly, and each result rounded once to float32."""
+    w = weights.to(torch.float64)
+    _, top = torch.frexp(w.amax(dim=-1, keepdim=True))
+    shift = 62 - (w.shape[-1] - 1).bit_length() - top
+    fixed = torch.round(torch.ldexp(w, shift)).to(torch.int64)
+    scan = torch.cumsum(fixed, dim=-1).to(torch.float64)
+    total = scan[..., -1:]
+    return ((fixed.to(torch.float64) / total).to(torch.float32),
+            (scan / total).to(torch.float32))
 
 
 def _categorical_pair_from_cdf(key, cdf, probs, m_draw: int):
@@ -157,9 +179,7 @@ def _var_ddof1(x):
 
 def propose_variance(key, x, m_draw):
     n = x.shape[-2]
-    variances = _var_ddof1(x)           # torch.var default is unbiased
-    probs = variances / variances.sum(dim=-1, keepdim=True)
-    cdf = torch.cumsum(probs, dim=-1)
+    probs, cdf = _exact_cdf(_var_ddof1(x))  # torch.var's unbiased form
     ku, kij = _keys(key, 2)
     u = prng.randint(ku, (m_draw,), 0, n)
     i, j = _categorical_pair_from_cdf(kij, cdf, probs, m_draw)
@@ -187,9 +207,8 @@ def popularity_probs(m: int, method: str = "zipf", alpha: float = 1.5,
 def propose_popularity(key, x, m_draw, method: str = "zipf",
                        alpha: float = 1.5):
     n, m = x.shape[-2:]
-    probs = popularity_probs(m, method, alpha, x.device).expand(
-        x.shape[0], m).contiguous()
-    cdf = torch.cumsum(probs, dim=-1)
+    probs, cdf = _exact_cdf(popularity_probs(m, method, alpha, x.device)
+                            .expand(x.shape[0], m))
     ku, kij = _keys(key, 2)
     u = prng.randint(ku, (m_draw,), 0, n)
     i, j = _categorical_pair_from_cdf(kij, cdf, probs, m_draw)

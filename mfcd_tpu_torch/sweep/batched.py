@@ -17,12 +17,23 @@ caller exports and persists chunk k.  Results and the pickle are the same
 bits, in the same order, with it off or on.  Its default is off on the
 card until a card measurement records otherwise (``core/decisions.py``).
 
-Not ported, with the reasons in ``ROADMAP.md``: the device ``mesh`` (one
-card) and the TPU-transport retries and compile-cache purge.  The phases
-are ``torch.profiler`` spans: ``mfcd.sweep.dispatch`` and
-``mfcd.sweep.collect`` (the copy to the host; both on the worker when
-pipelined), ``mfcd.sweep.wait`` (the caller waiting for a chunk),
-``mfcd.sweep.export``, ``mfcd.sweep.persist``.
+``mesh=`` (:func:`make_sweep_mesh`, a 1-D ``("grid",)`` mesh over the
+ranks of a ``torch.distributed`` job, ``parallel/``) shards each chunk over
+the ranks, as the JAX package shards it over devices: every rank calls the
+scan with the same arguments, pads the chunk to a multiple of the rank
+count by repeating its last configuration, runs its contiguous block of
+it, and gathers every rank's results, so each rank returns the whole list
+(the padding dropped).  The chunks are the ones an unsharded scan runs, so
+results and the pickle are the same bits; only rank 0 writes it.  The
+ranks agree on a chunk's failure before any of them bisects it.  Every
+collective runs on the caller's thread, in chunk order.
+
+Not ported: the TPU-transport retries and compile-cache purge
+(``ROADMAP.md``).  The phases are ``torch.profiler`` spans:
+``mfcd.sweep.dispatch`` and ``mfcd.sweep.collect`` (the copy to the host;
+both on the worker when pipelined), ``mfcd.sweep.wait`` (the caller
+waiting for a chunk), ``mfcd.sweep.gather`` (the ranks' results, under a
+mesh), ``mfcd.sweep.export``, ``mfcd.sweep.persist``.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from mfcd_tpu_torch.backend import resolve_device
@@ -41,6 +53,7 @@ from mfcd_tpu_torch.core import decisions, prng, rng
 from mfcd_tpu_torch.core.config import (TRAIN_RATIO, RunConfig, SweepSpec,
                                         _next_pow2, bucket_by_shape)
 from mfcd_tpu_torch.core.results import export_results
+from mfcd_tpu_torch.parallel.mesh import Mesh
 from mfcd_tpu_torch.sampling import dedup, prp, strategies
 from mfcd_tpu_torch.sweep.engine import (DEFAULT_SEED, _run_bucket_device,
                                          compile_caps, default_use_kernel)
@@ -82,6 +95,53 @@ def pipeline_enabled() -> bool:
     return decisions.flag_enabled("MFCD_PIPELINE", "pipeline", default=False)
 
 
+def make_sweep_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
+    """A 1-D ``("grid",)`` mesh over every rank of the job, on this rank's
+    ``device`` (``None``: its card), for experiment-level DP.
+    ``n_devices`` other than the job's rank count raises."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"Need {n_devices} ranks, the job has {world}")
+    return Mesh.create((world,), ("grid",), device)
+
+
+def _mesh_device(mesh: Mesh, device) -> torch.device:
+    """The mesh's device; ``device``, where given, must name it."""
+    if device is not None:
+        asked = resolve_device(device)
+        if asked.type != mesh.device.type or asked.index not in (
+                None, mesh.device.index):
+            raise ValueError(f"device {asked} is not the mesh's "
+                             f"{mesh.device}")
+    return mesh.device
+
+
+_OK, _OOM, _FAILED = 0, 1, 2
+
+
+def _gather(mesh: Mesh, host: Optional[Dict[str, torch.Tensor]],
+            err: Optional[BaseException]) -> Dict[str, torch.Tensor]:
+    """Every rank's block of a chunk, in rank order.  First the ranks
+    agree: if the chunk failed on any, every rank raises, its own error or
+    else an OOM where the worst was an OOM (so every rank bisects), else a
+    failure.  A rank that bisected alone would wait in a gather no other
+    rank joins."""
+    code = _OK if err is None else _OOM if _is_oom(err) else _FAILED
+    flag = torch.tensor([code], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    worst = int(flag.item())
+    if worst != _OK:
+        if err is not None and code == worst:
+            raise err
+        if worst == _OOM:
+            raise RuntimeError("out of memory on another rank of the mesh")
+        raise RuntimeError("the chunk failed on a rank of the mesh") from err
+    with record_function("mfcd.sweep.gather"):
+        blocks = [None] * mesh.size
+        dist.all_gather_object(blocks, host)
+        return {k: torch.cat([blk[k] for blk in blocks]) for k in blocks[0]}
+
+
 class BucketFuture:
     """A dispatched chunk: its host results now or later, collected once.
 
@@ -89,11 +149,16 @@ class BucketFuture:
     given, else at once; any error it raises is kept and raised by
     :meth:`collect`, so a pipelined caller meets every failure in chunk
     order.  An OOM reaches the caller's bisector from ``collect()`` at
-    once, and so does every other error: nothing is retried."""
+    once, and so does every other error: nothing is retried.  Under a
+    ``mesh`` the dispatch holds this rank's block; ``collect()`` (on the
+    caller's thread) agrees with the other ranks on failure and gathers
+    every rank's block, in rank order."""
 
     def __init__(self, dispatch, postprocess,
-                 executor: Optional[concurrent.futures.Executor] = None):
+                 executor: Optional[concurrent.futures.Executor] = None,
+                 mesh: Optional[Mesh] = None):
         self._post = postprocess
+        self._mesh = mesh
         if executor is not None:
             self._job = executor.submit(dispatch)
             return
@@ -109,7 +174,14 @@ class BucketFuture:
 
     def collect(self) -> List[Dict[str, Any]]:
         with record_function("mfcd.sweep.wait"):
-            host = self._job.result()
+            try:
+                host, err = self._job.result(), None
+            except Exception as e:  # noqa: BLE001 - raised here or by _gather
+                if self._mesh is None:
+                    raise
+                host, err = None, e
+        if self._mesh is not None:
+            host = _gather(self._mesh, host, err)
         with record_function("mfcd.sweep.export"):
             return self._post(host)
 
@@ -123,10 +195,13 @@ def run_bucket_async(
     bucket_configs: Optional[Sequence[RunConfig]] = None,
     device=None,
     executor: Optional[concurrent.futures.Executor] = None,
+    mesh: Optional[Mesh] = None,
 ) -> BucketFuture:
     """Dispatch a same-shape bucket of configurations on ``device``; returns
     a :class:`BucketFuture` whose ``collect()`` gives one reference results
-    dict per configuration, in bucket order.
+    dict per configuration, in bucket order.  Under a ``mesh`` (on its
+    device) this rank runs its block of the bucket, padded to a multiple
+    of the rank count, and ``collect()`` gathers the rest.
 
     ``hyper_rows`` carries ``{'s', 'lr', 'weight_decay'}`` per
     configuration and ``config_indices`` their global experiment indices
@@ -140,14 +215,24 @@ def run_bucket_async(
     ``executor`` when one is given.  It copies to the host itself, so the
     caller's collect never waits behind a later chunk's kernels; and it
     makes the caller's card current in the worker thread."""
-    device = resolve_device(device)
     b = len(hyper_rows)
-    idx = torch.as_tensor(np.asarray(config_indices, np.int64), device=device)
-    cfg_keys = rng.config_key(prng.key(seed, device=device)[None], idx)
-    column = lambda key: np.asarray([r[key] for r in hyper_rows], np.float32)
     shs = ([c.shapes() for c in bucket_configs] if bucket_configs is not None
            else [cfg.shapes()] * b)
     targets = [sh.num_triplets for sh in shs]
+    idx, rows = list(config_indices), list(hyper_rows)
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        device = _mesh_device(mesh, device)
+        pad = (-b) % mesh.size
+        per = (b + pad) // mesh.size
+        block = slice(mesh.rank * per, (mesh.rank + 1) * per)
+        idx = (idx + idx[-1:] * pad)[block]
+        rows = (rows + rows[-1:] * pad)[block]
+        shs = (shs + shs[-1:] * pad)[block]
+    idx = torch.as_tensor(np.asarray(idx, np.int64), device=device)
+    cfg_keys = rng.config_key(prng.key(seed, device=device)[None], idx)
+    column = lambda key: np.asarray([r[key] for r in rows], np.float32)
     card = cfg_keys.device.index if device.type == "cuda" else None
 
     def dispatch():
@@ -158,7 +243,7 @@ def run_bucket_async(
                 dataclasses.replace(cfg, s=0.0, lr=0.0, weight_decay=0.0),
                 cfg_keys, column("s"), column("lr"), column("weight_decay"),
                 use_kernel=default_use_kernel(cfg, device), caps=caps,
-                budgets=np.asarray(targets, np.int32),
+                budgets=np.asarray([sh.num_triplets for sh in shs], np.int32),
                 extra_budgets=np.asarray(
                     [sh.extra_test_triplets for sh in shs], np.int32))
         with record_function("mfcd.sweep.collect"):
@@ -176,7 +261,7 @@ def run_bucket_async(
             results.append(export_results(per_cfg))
         return results
 
-    return BucketFuture(dispatch, postprocess, executor)
+    return BucketFuture(dispatch, postprocess, executor, mesh)
 
 
 def run_bucket(
@@ -187,11 +272,12 @@ def run_bucket(
     caps=None,
     bucket_configs: Optional[Sequence[RunConfig]] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> List[Dict[str, Any]]:
     """Synchronous :func:`run_bucket_async`: dispatch, collect, export."""
     return run_bucket_async(cfg, hyper_rows, config_indices, seed=seed,
                             caps=caps, bucket_configs=bucket_configs,
-                            device=device).collect()
+                            device=device, mesh=mesh).collect()
 
 
 def memory_budget_bytes(device) -> float:
@@ -321,6 +407,7 @@ def parameter_scan_fast(
     max_bucket: Optional[int] = None,
     resume: bool = False,
     pad_compiles: bool = True,
+    mesh: Optional[Mesh] = None,
     **params,
 ) -> List[Dict[str, Any]]:
     """``parameter_scan`` over shape buckets, with the same semantics and
@@ -337,8 +424,18 @@ def parameter_scan_fast(
     memory is split in two and retried, down to single configurations.
     With ``MFCD_PIPELINE=1`` (:func:`pipeline_enabled`) chunk k+1 is
     dispatched on a worker thread before chunk k is collected; the results
-    and the pickle are the same.  ``device=None`` means the card."""
-    device = resolve_device(device)
+    and the pickle are the same.  ``device=None`` means the card.
+
+    Under a ``mesh`` (:func:`make_sweep_mesh`; every rank calls the scan
+    with the same arguments) each chunk is sharded over the ranks, and
+    every rank returns the whole list; only rank 0 writes ``save_path``.
+    ``max_bucket`` counts configurations over all ranks, as in the JAX
+    package, so the chunks, and the pickle, are those of an unsharded
+    scan.  With ``resume`` every rank reads the file before rank 0 writes
+    to it.  ``device`` defaults to the mesh's."""
+    device = (resolve_device(device) if mesh is None
+              else _mesh_device(mesh, device))
+    writer = mesh is None or mesh.rank == 0
     spec = SweepSpec(params=params, linear=linear, batch_size=batch_size)
     param_sets = spec.expand()
     configs = [RunConfig(batch_size=batch_size, **ps) for ps in param_sets]
@@ -348,10 +445,12 @@ def parameter_scan_fast(
     if save_path:
         if resume:
             done = completed_param_sets(save_path)
-            if done:
+            if done and writer:
                 print(f"🔁 Resuming: {len(done)} experiments already in "
                       f"{save_path}")
-        else:
+            if mesh is not None:
+                dist.barrier()
+        elif writer:
             reset_save_path(save_path)
 
     slot_results: List[Optional[Dict]] = [None] * len(configs)
@@ -380,7 +479,7 @@ def parameter_scan_fast(
                      for i in chunk],
                     chunk, seed=seed, caps=caps,
                     bucket_configs=[configs[i] for i in chunk],
-                    device=device, executor=pool)
+                    device=device, executor=pool, mesh=mesh)
 
             def collect_or_bisect(chunk, fut, in_flight=None):
                 """Collect a chunk; on a device OOM, split it in two and
@@ -409,7 +508,7 @@ def parameter_scan_fast(
             def store(chunk, outs):
                 for i, res in zip(chunk, outs):
                     slot_results[i] = res
-                if save_path:
+                if save_path and writer:
                     with record_function("mfcd.sweep.persist"):
                         append_results(save_path, [
                             {"params": param_sets[i], "results": res}

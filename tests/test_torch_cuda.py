@@ -753,3 +753,25 @@ def test_pipeline_on_the_card_matches_off(tmp_path, monkeypatch):
                 np.testing.assert_allclose(np.asarray(x, np.float64),
                                            np.asarray(y, np.float64),
                                            rtol=2e-3, atol=2e-3, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cdf_samplers_do_not_depend_on_the_chunk():
+    """The variance and popularity proposals of a run are the same bits
+    alone or beside other runs on the card (their CDFs are summed and
+    scanned in fixed point), and the same as the CPU's from the same X;
+    the mesh's sharded sweeps rely on it."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.sampling import strategies as S
+
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 300, 400, generator=g)
+    keys = prng.split(prng.key(3), 8)
+    for fn in (S.propose_variance, S.propose_popularity):
+        full = fn(keys.to(dev), x.to(dev), 2048)
+        cpu = fn(keys, x, 2048)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(full, cpu))
+        for lo, hi in ((0, 1), (1, 3), (3, 7)):
+            part = fn(keys[lo:hi].to(dev), x[lo:hi].to(dev), 2048)
+            assert all(torch.equal(a[lo:hi], b) for a, b in zip(full, part))

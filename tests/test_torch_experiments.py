@@ -23,6 +23,7 @@ import experiments.runs as jruns
 from mfcd_tpu.core import config as jconfig
 from mfcd_tpu.core.results import RESULT_KEYS
 from mfcd_tpu_torch.experiments import runs as truns
+from mfcd_tpu_torch.parallel.mesh import Mesh
 from mfcd_tpu_torch.sweep import batched as tbatched
 from mfcd_tpu_torch.sweep import engine as tengine
 
@@ -192,9 +193,12 @@ def test_mesh_raises_on_both_paths():
     with pytest.raises(ValueError, match="requires fast=True"):
         truns.strategies_p_sweep(scale=0.01, strategies=("random",),
                                  mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M16"):
+    # The fast path takes a mesh (tests/test_torch_parallel.py runs it),
+    # and refuses a device other than the mesh's.
+    card_mesh = Mesh((1,), ("grid",), 0, torch.device("cuda", 0), {})
+    with pytest.raises(ValueError, match="not the mesh's"):
         truns.strategies_p_sweep(scale=0.01, strategies=("random",),
-                                 mesh=object(), fast=True, device="cpu")
+                                 mesh=card_mesh, fast=True, device="cpu")
 
 
 def _flat(v):

@@ -6,8 +6,8 @@ With the pipeline on, one worker thread dispatches chunk k+1 while the
 caller exports chunk k.  Keys fold from global experiment indices and the
 arithmetic does not depend on which thread runs it, so results and the
 pickle are bit-equal to the sequential loop, in the same order.  (The mesh
-case waits for the port's multi-device layer; the transport retries are
-not ported.)
+case is in ``tests/test_torch_parallel.py``; the transport retries are not
+ported.)
 """
 
 import concurrent.futures

@@ -188,6 +188,29 @@ def test_margin_window_matches_jax():
                 jnp.asarray(xs[r]), jnp.int32(budgets[r]))), rtol=1e-6)
 
 
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 50.0])
+def test_exact_cdf_is_exact_and_batch_invariant(scale):
+    """The variance and popularity CDFs: within float32 rounding of the
+    exact probabilities and scan, the last entry 1, and a run's rows the
+    same bits alone as beside others (on the card torch splits a float
+    sum or scan by the row count; the fixed-point sum and scan do not
+    depend on it)."""
+    w = torch.from_numpy(np.random.default_rng(5).random((5, 700))) * scale
+    probs, cdf = ts._exact_cdf(w.to(torch.float32))
+    w64 = w.to(torch.float32).to(torch.float64)
+    exact = torch.cumsum(w64, dim=-1) / w64.sum(dim=-1, keepdim=True)
+    np.testing.assert_allclose(cdf.numpy(), exact.numpy(), rtol=2**-23,
+                               atol=0)
+    np.testing.assert_allclose(probs.numpy(),
+                               (w64 / w64.sum(-1, keepdim=True)).numpy(),
+                               rtol=2**-23, atol=0)
+    assert torch.all(cdf[:, -1] == 1.0)
+    for lo, hi in ((0, 1), (1, 3), (4, 5)):
+        part = ts._exact_cdf(w[lo:hi].to(torch.float32))
+        assert torch.equal(part[0], probs[lo:hi])
+        assert torch.equal(part[1], cdf[lo:hi])
+
+
 def test_popularity_probs_match_jax():
     for method in ("zipf", "exponential", "uniform"):
         np.testing.assert_allclose(
