@@ -111,7 +111,28 @@ Phases, each of which raises on failure (nothing is caught and continued):
    the run count of a call (``dryrun_multichip.ROUNDED_KEYS``, within
    rtol 1e-5, atol 1e-5, svd_error_scaled on its square).  Per case: wall
    and s/run (or ms/step) sharded and unsharded, ranks, backend, peak
-   memory per rank.
+   memory per rank;
+12. scale: (a) K1 where the shape needs a cluster of blocks, n = m = 5,000
+   (smallest C 2) and 10,000 (smallest C 4), d = 2, bs = 64, pack "none",
+   64 batches, at R = 1, 4 and one past the runs the card holds at the
+   smallest C (a second wave): against its plain version, bit-equal at
+   every C from the smallest that the card schedules, a forced C below it
+   (and packed) raising ``ValueError``; ms an epoch, us a step, the bound;
+   (b) ``mfcd_tpu_torch.scripts.scale_demo`` at n = m = 10,000, p = 0.02,
+   30 epochs (two ``run_config`` calls): K1 the trainer, 30 launches a
+   call at the chosen C, every key finite, accuracy above 0.6 and within
+   0.2 of the ground truth's; the first and the steady wall, peak memory
+   and, in a third call, the stage spans with the card synchronised at
+   their edges; then at
+   n = m = 5,000, p = 0.02, 2 epochs, ``run_config`` with K1 against the
+   autograd trainer on the card, within [5]'s bound; (c)
+   ``mfcd_tpu_torch.scripts.weak_scaling``'s fixed work at 1 and 2 gloo
+   ranks sharing the card (and 4 NCCL ranks where there are 4 cards):
+   wall, s/run, the collective census (none in the train stage, one
+   failure-flag all_reduce and one all_gather_object a chunk, whatever
+   its size), results equal to the unsharded bucket's within (b)'s bound
+   of [11]; (d) the forward probe (``scripts/graft_entry.py``) on the card
+   against the same params on the CPU, within 1e-6 x max|p| + 1e-7.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -207,6 +228,16 @@ MESH_STEPS = 30
 MESH_LR, MESH_WD = 1e-3, 5e-6
 GLOO_MESHES = ((1, 2, 1), (1, 1, 2), (2, 1, 1))
 MESH_TIMEOUT_S = 600
+# [12] K1 past one block a run: n = m, d = 2, bs = 64, pack "none"; the
+# scale demo, the trainer check at the new shape, weak scaling's ranks and
+# the forward probe's bound (the card's and the CPU's sigmoid round apart).
+SCALE_ROWS = (5000, 10_000)
+SCALE_BATCHES = 64
+SCALE_DEMO = dict(n=10_000, p=0.02, epochs=30)
+TRAINER_CHECK = dict(n=5000, m=5000, d=2, p=0.02, s=5.0, lr=1e-3,
+                     weight_decay=1e-5, num_epochs=2, reps=1)
+WEAK_RANKS = (1, 2)
+PROBE_RTOL, PROBE_ATOL = 1e-6, 1e-7
 
 
 def log(msg: str) -> None:
@@ -2024,6 +2055,233 @@ def mesh_phase(smi, fast_ref, cell18_ref):
     return launches
 
 
+def scale_kernel_phase(dev, smi):
+    """[12a] K1 at n = m = 5,000 and 10,000 (smallest C 2 and 4), d = 2,
+    bs = 64, pack "none", 64 batches, at R = 1, 4 and one past the runs the
+    card holds at once at the smallest C: against its plain version; bit-
+    equal at every C from the smallest that the card schedules (the
+    largest R in waves at each); a forced C below the smallest, and
+    packed, raising; timed beside the bound.  Returns (the entries, the
+    largest max |diff|)."""
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.scripts.profile_kernel_split import median_ms
+
+    idx = dev.index or 0
+    d, bs, nb = 2, 64, SCALE_BATCHES
+    entries, worst = [], 0.0
+    for n in SCALE_ROWS:
+        floor = kernels.min_cluster(n, n, d, bs)
+        occ = lambda c: kernels.epoch_occupancy(n, n, d, bs, c, idx)
+        held = occ(floor)[1]
+        shapes = [c for c in kernels.CLUSTER_SIZES
+                  if c >= floor and occ(c)[1] > 0]
+        g = np.random.default_rng(n)
+        for r in (1, 4, held + 1):
+            label = f"n=m={n} R={r}"
+            inp = make_epoch_inputs(
+                20 + r, r, n, n, d, bs, nb, [nb * bs] * (r - 1)
+                + [nb * bs - 37], list(10.0 ** g.uniform(-3.5, -2, r)),
+                "none", dev)
+            args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"],
+                    inp["count"])
+            err, plain_ms, got = compare_epoch(inp, label)
+            worst = max(worst, err)
+            c = kernels.cluster_size(r, n, n, d, bs, dev)
+            if c < floor:
+                fail(f"{label}: chose C={c} below the smallest C {floor}")
+            for k in shapes:
+                out = kernels._train_epoch(clone_state(inp["state"]), *args,
+                                           pack=inp["pack"], cluster=k)
+                torch.cuda.synchronize()
+                if not bit_equal(got, out):
+                    fail(f"{label}: C={c} and C={k} differ")
+            for bad in (kernels.PACKED,) + tuple(
+                    k for k in (1, 2) if k < floor):
+                try:
+                    kernels._train_epoch(clone_state(inp["state"]), *args,
+                                         pack=inp["pack"], cluster=bad)
+                except ValueError as e:
+                    if "smallest C that fits" not in str(e):
+                        fail(f"{label}: C={bad}: {e}")
+                else:
+                    fail(f"{label}: a forced C={bad} below {floor} ran")
+            ms = median_ms(lambda st: kernels.train_epoch(
+                st, *args, pack=inp["pack"]), inp["state"], warmup=1,
+                reps=5)
+            steps = executed_steps(inp, bs) / r
+            bound, by = epoch_bound_ms(inp, n, n, d, bs)
+            entry = dict(label=label, n=n, r=r, bs=bs, pack="none",
+                         smallest_cluster=floor, cluster=c,
+                         resident_runs=occ(c)[1],
+                         waves=-(-r // occ(c)[1]), ms=ms,
+                         us_per_step=ms * 1e3 / steps, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, max_abs_err=err,
+                         bit_equal_at=shapes)
+            entries.append(entry)
+            log(f"[12a] K1 {label}: C={c} (smallest {floor}, "
+                f"{entry['resident_runs']} runs resident, {entry['waves']} "
+                f"wave(s)), {ms:.4f} ms/epoch ({entry['us_per_step']:.4f} "
+                f"us/step), plain {plain_ms:.2f} ms, bound {bound:.6f} ms "
+                f"({by}); bit-equal at C={shapes}, C={kernels.PACKED} "
+                f"(packed) and C<{floor} refused; {smi}")
+    return entries, worst
+
+
+def _synced_spans(call):
+    """One ``call()`` with the port's stage spans (``mfcd.*`` in the engine
+    and the kernel trainer) timed on the host clock, the card synchronised
+    at each span's edges, so a span holds its own device work: returns
+    (the call's wall, seconds by span).  It costs a few syncs an epoch,
+    where a profiler trace of every launch of a 30-epoch run at n = m =
+    10,000 is long to read back."""
+    import contextlib
+
+    from mfcd_tpu_torch.sweep import engine
+    from mfcd_tpu_torch.train import kernel_trainer
+
+    spans = {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+
+    saved = [(mod, mod.record_function) for mod in (engine, kernel_trainer)]
+    for mod, _ in saved:
+        mod.record_function = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, fn in saved:
+            mod.record_function = fn
+    return wall, spans
+
+
+def scale_demo_phase(smi):
+    """[12b] ``scale_demo`` at n = m = 10,000 (K1 the trainer, 30 launches
+    a call, every key finite, learning), a third call for the span split;
+    then K1 against the autograd trainer at n = m = 5,000.
+    Returns the demo's line."""
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.core.results import validate_schema
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.scripts import scale_demo
+    from mfcd_tpu_torch.sweep.engine import run_config
+
+    kernels.EPOCH_LAUNCHES = 0
+    line, res = scale_demo.run(**SCALE_DEMO, device="cuda")
+    launches = kernels.EPOCH_LAUNCHES
+    epochs, n = SCALE_DEMO["epochs"], SCALE_DEMO["n"]
+    if line["trainer"] != "fused-epoch kernel":
+        fail(f"[12b] scale_demo trained with {line['trainer']}")
+    if line["k1_launches"] != [epochs] * 2 or launches != 2 * epochs:
+        fail(f"[12b] K1 launches {line['k1_launches']} ({launches} in all),"
+             f" expected {epochs} a call")
+    if line["cluster"] < line["smallest_cluster"]:
+        fail(f"[12b] C={line['cluster']} below {line['smallest_cluster']}")
+    problems = validate_schema(res)
+    if problems or not all_finite(res):
+        fail(f"[12b] results: schema {problems}, finite {all_finite(res)}")
+    acc, gt = float(res["accuracy"][0]), float(res["gt_accuracy"][0])
+    if not (acc > 0.6 and gt - acc < 0.2):
+        fail(f"[12b] accuracy {acc:.4f}, ground truth {gt:.4f}")
+    cfg = RunConfig(n=n, m=n, d=2, p=SCALE_DEMO["p"], s=5.0, lr=1e-3,
+                    weight_decay=1e-5, num_epochs=epochs, reps=1)
+    wall, spans = _synced_spans(lambda: run_config(
+        cfg, seed=scale_demo.SEEDS[1], device="cuda"))
+    keep = ("mfcd.sample", "mfcd.label", "mfcd.train", "mfcd.train.mix",
+            "mfcd.train.epoch", "mfcd.train.val", "mfcd.metrics",
+            "mfcd.export")
+    log(f"[12b] scale_demo n=m={n} p={SCALE_DEMO['p']}: first call "
+        f"{line['first_call_s']:.3f} s, steady {line['value']:.3f} s; K1 at "
+        f"C={line['cluster']} (smallest {line['smallest_cluster']}), "
+        f"launches {line['k1_launches']}; peak "
+        f"{line['peak_bytes'] / 1e9:.3f} GB; accuracy {acc:.4f}, gt {gt:.4f}"
+        f"; a third call with synchronised spans {wall:.3f} s: "
+        + ", ".join(f"{k} {1e3 * spans.get(k, 0.0):.1f}" for k in keep)
+        + f" ms; {smi}")
+    log("[12b] line " + json.dumps(line))
+
+    chk = RunConfig(**TRAINER_CHECK)
+    t0 = time.perf_counter()
+    with_k1 = run_config(chk, seed=3, use_kernel=True, device="cuda")
+    t_k1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    autograd = run_config(chk, seed=3, use_kernel=False, device="cuda")
+    t_ag = time.perf_counter() - t0
+    worst = compare_results(with_k1, autograd, "[12b] K1 vs autograd")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[12b] trainers at n=m={chk.n}, p={chk.p}, {chk.num_epochs} epochs:"
+        f" K1 {t_k1:.2f} s, autograd {t_ag:.2f} s; 23 keys within rtol "
+        f"{CARD_CPU_RTOL}, atol {CARD_CPU_ATOL}; largest |diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in top) + f"; {smi}")
+    return line
+
+
+def weak_scaling_phase(smi):
+    """[12c] ``weak_scaling``'s fixed work over gloo ranks sharing the card
+    (and NCCL ranks, one a card, where there are 4 cards): the census and
+    the results are checked inside.  Returns K1's launches a rank."""
+    from mfcd_tpu_torch.scripts import weak_scaling
+
+    runs = [weak_scaling.scaling(WEAK_RANKS, "cuda", backend="gloo",
+                                 timeout_s=MESH_TIMEOUT_S)]
+    if torch.cuda.device_count() >= 4:
+        runs.append(weak_scaling.scaling([4], "cuda",
+                                         timeout_s=MESH_TIMEOUT_S))
+    launches = {}
+    for out in runs:
+        for row in out["scaling"]:
+            key = f"{row['ranks']}_{row['backend']}"
+            launches[key] = row["k1_launches_by_rank"]
+            census = out["census"][str(row["ranks"])]
+            log(f"[12c] weak scaling, {row['ranks']} {row['backend']} "
+                f"rank(s): {out['fixed_total_work']['total_runs']} runs in "
+                f"{row['wall_s']:.4f} s ({row['s_per_run']:.5f} s/run; walls "
+                f"by rank {row['walls_by_rank']}), acc {row['acc_mean']:.4f};"
+                f" census a chunk {out['per_chunk']} at "
+                f"{[c['configs'] for c in census['chunks']]} configs, train "
+                f"stage {census['train_stage'] or 'none'}; K1 launches a rank"
+                f" {row['k1_launches_by_rank']}; every key equal to the "
+                f"unsharded bucket's but the metric block's: "
+                + _gap_text(row["rounded_gaps"]) + f"; {smi}")
+    return launches
+
+
+def forward_probe_phase(smi):
+    """[12d] The forward probe on the card against the same params and
+    indices on the CPU."""
+    from mfcd_tpu_torch.scripts import graft_entry
+
+    fn, args = graft_entry.entry("cuda")
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: fn(*args), warmup=2, reps=20)
+    params, u, i, j = args
+    cpu = type(params)(params.U.cpu(), params.V.cpu())
+    want = fn(cpu, u.cpu(), i.cpu(), j.cpu())
+    err = float((out.cpu() - want).abs().max())
+    bound = PROBE_RTOL * float(want.abs().max()) + PROBE_ATOL
+    if out.shape != (graft_entry.BATCH,) or not torch.isfinite(out).all():
+        fail(f"[12d] forward probe: shape {tuple(out.shape)}, finite "
+             f"{bool(torch.isfinite(out).all())}")
+    if err > bound:
+        fail(f"[12d] forward probe: max|diff| {err:.3g} > {bound:.3g}")
+    log(f"[12d] forward probe: {graft_entry.BATCH} triplets at n=m="
+        f"{graft_entry.N}, d={graft_entry.D}: {ms:.4f} ms, max|diff| to the "
+        f"CPU {err:.3g} (bound {bound:.3g}), mean {float(out.mean()):.6f}; "
+        f"{smi}")
+
+
 def _gap_text(gaps) -> str:
     """The rounded keys' largest |diff|, or that there was none."""
     from mfcd_tpu_torch.scripts.dryrun_multichip import (ROUNDED_ATOL,
@@ -2158,6 +2416,15 @@ def main() -> int:
     # over ranks of torch.distributed jobs on the card.
     mesh_launches = mesh_phase(smi, fast_ref, cell18_ref)
 
+    # [12] K1 where the shape needs a cluster, the scale demo, weak scaling
+    # and the forward probe.
+    t0 = time.perf_counter()
+    scale_entries, scale_err = scale_kernel_phase(dev, smi)
+    demo = scale_demo_phase(smi)
+    weak = weak_scaling_phase(smi)
+    forward_probe_phase(smi)
+    log(f"[12] scale: {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_train_epoch",
@@ -2165,7 +2432,7 @@ def main() -> int:
         "source": "mfcd_tpu_torch/ops/csrc/epoch_kernel.cu",
         "replaces": "mfcd_tpu/ops/kernels.py:69",
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, scale_err),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound,
@@ -2175,6 +2442,9 @@ def main() -> int:
         "generation_launches": generation_launches,
         "study_launches": study_launches,
         "mesh_launches": mesh_launches,
+        "scale_demo_launches": demo["k1_launches"],
+        "weak_scaling_launches": weak,
+        "scale_shapes": scale_entries,
         "cluster": timings[0]["cluster"],
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,

@@ -22,9 +22,11 @@ that ``epoch_kernel.cu`` instantiates at the full stage set, instantiated
 by ``ops/csrc/epoch_variants.cu`` at every stage set (``full`` is K1's
 code, built again) and at the full one over the factored layout.  So the
 split is the split of the K1 the main path runs, at K1's launch shapes:
-the wrappers pick C as :func:`kernels.cluster_size` does, from each
-kernel's own occupancy query, and take any batch size whose shared memory
-fits one block (:func:`split_kernel_supported`).
+the wrappers pick C with :func:`kernels.cluster_size`, at or above the
+smallest portable C whose block fits (:func:`split_min_cluster`, K1's
+gate over each kernel's own shared memory), so P1 takes every shape K1
+takes (:func:`split_kernel_supported`).  P2's factored layout holds at
+most ``FACTORED_ROWS`` rows a table; that limit stays.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel for CUDA tensors; anything else raises.  Both take pack "full" only,
@@ -47,11 +49,13 @@ import torch
 
 from mfcd_tpu_torch.models.mf import gather_rows
 from mfcd_tpu_torch.ops import _build
-from mfcd_tpu_torch.ops.kernels import (CLUSTER_SIZES, PACKED, SMEM_PER_BLOCK,
+from mfcd_tpu_torch.ops.kernels import (CLUSTER_SIZES, PACKED,
+                                        PORTABLE_CLUSTERS, SMEM_PER_BLOCK,
                                         EpochState, _adam_consts, _check,
                                         _epoch_reference, _forward,
                                         _index_add, _rows_first, _unpack,
-                                        _v_grad_interleaved, cluster_size,
+                                        _v_grad_interleaved,
+                                        check_launch_shape, cluster_size,
                                         epoch_smem_bytes)
 
 # Stage sets, in the order each adds one stage to the one before
@@ -103,20 +107,38 @@ def split_smem_bytes(n: int, m: int, d: int, batch_size: int,
     return epoch_smem_bytes(n, m, d, batch_size, cluster) + extra
 
 
+def split_min_cluster(n: int, m: int, d: int, batch_size: int,
+                      kernel: str = "full") -> Optional[int]:
+    """The smallest C of ``PORTABLE_CLUSTERS`` at which one block of
+    ``kernel`` fits, as :func:`kernels.min_cluster` for K1; None where none
+    does, and for P2 past its layout's ``FACTORED_ROWS`` rows."""
+    if kernel == FACTORED and max(n, m) > FACTORED_ROWS:
+        return None
+    return next((c for c in PORTABLE_CLUSTERS
+                 if split_smem_bytes(n, m, d, batch_size, c, kernel)
+                 <= SMEM_PER_BLOCK), None)
+
+
 def split_kernel_supported(n: int, m: int, d: int, batch_size: int,
                            kernel: str = "full") -> bool:
-    """Does one run of ``kernel`` fit a thread block?  At C = 1, as
-    :func:`kernels.epoch_kernel_supported`."""
-    return split_smem_bytes(n, m, d, batch_size, 1, kernel) <= SMEM_PER_BLOCK
+    """Does one run of ``kernel`` fit a cluster of a portable size?  K1's
+    gate (:func:`kernels.epoch_kernel_supported`) over the kernel's own
+    shared memory; P2 also needs n, m <= ``FACTORED_ROWS``."""
+    return split_min_cluster(n, m, d, batch_size, kernel) is not None
 
 
 def _check_fits(who: str, n: int, m: int, d: int, batch_size: int,
-                kernel: str) -> None:
-    if not split_kernel_supported(n, m, d, batch_size, kernel):
-        raise ValueError(
-            f"{who}: n={n}, m={m}, d={d}, bs={batch_size} needs "
-            f"{split_smem_bytes(n, m, d, batch_size, 1, kernel)} B of shared "
-            f"memory in one block (limit {SMEM_PER_BLOCK})")
+                kernel: str, cluster: Optional[int] = None) -> int:
+    """Raise unless ``kernel`` fits this shape at some portable C, and a
+    forced ``cluster`` at or above the smallest; returns that smallest C."""
+    if kernel == FACTORED and max(n, m) > FACTORED_ROWS:
+        raise ValueError(f"{who}: {max(n, m)} rows, the factored layout "
+                         f"holds {FACTORED_ROWS}")
+    floor = split_min_cluster(n, m, d, batch_size, kernel)
+    check_launch_shape(
+        f"{who}: n={n}, m={m}, d={d}, bs={batch_size}", cluster, floor,
+        lambda c: split_smem_bytes(n, m, d, batch_size, c, kernel))
+    return floor
 
 
 def _check_cluster(who: str, cluster: Optional[int]) -> None:
@@ -343,9 +365,9 @@ def _train_epoch_variant(state: EpochState, stream, lr, wd, step0, count,
     _check_epoch_args(state, stream, lr, wd, step0, count,
                       [(r, d, k) for k in (n, m, n, n, m, m)])
     num_batches, bs = stream[0].shape[1:]
-    _check_fits("train_epoch_variant", n, m, d, bs, name)
+    floor = _check_fits("train_epoch_variant", n, m, d, bs, name, cluster)
     if cluster is None:
-        cluster = cluster_size(r, n, m, d, bs, dev)
+        cluster = cluster_size(r, n, m, d, bs, dev, floor)
     loss = torch.empty(r, dtype=torch.float32, device=dev)
     alive = torch.zeros(r, dtype=torch.float32, device=dev)
     lib = _library()
@@ -403,9 +425,10 @@ def _train_epoch_factored(state_f: EpochState, stream, lr, wd, step0, count,
                          f"indices can exceed the layout's {FACTORED_ROWS} "
                          f"rows")
     rows = FACTORED_ROWS
-    _check_fits("train_epoch_factored", rows, rows, d, bs, FACTORED)
+    floor = _check_fits("train_epoch_factored", rows, rows, d, bs, FACTORED,
+                        cluster)
     if cluster is None:
-        cluster = cluster_size(r, rows, rows, d, bs, dev)
+        cluster = cluster_size(r, rows, rows, d, bs, dev, floor)
     loss = torch.empty(r, dtype=torch.float32, device=dev)
     lib = _library()
     err = lib.mfcd_train_epoch_factored(

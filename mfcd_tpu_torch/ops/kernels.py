@@ -13,14 +13,17 @@ of the JAX package.
   :func:`train_epoch_reference` for CPU tensors only.  On the card the
   state tensors are updated in place, as the TPU kernel aliases them.
 - :func:`choose_cluster` picks the launch shape from R and an occupancy
-  query, before the launch: the largest C whose R clusters are all
-  resident at once, else the packed kernel.
+  query, before the launch, among the shapes whose block fits: the
+  largest C whose R clusters are all resident at once, else the packed
+  kernel where the C = 1 block fits, else the C with the most resident
+  runs (the rest queue behind them, in waves).
 - :func:`train_epoch_reference` is the same function in plain PyTorch:
   index gathers, ``index_add_`` in batch order, the same Adam arithmetic,
   the same executed batches.
-- :func:`epoch_kernel_supported` is the shape gate: the kernel's shared
-  memory must fit one block's 232,448 bytes.  Any batch size works: the
-  kernel loops batch rows and gradient entries over its threads.
+- :func:`epoch_kernel_supported` is the shape gate: at some portable
+  cluster size C (:func:`min_cluster`), one block's share of the run must
+  fit the block's 232,448 bytes of shared memory.  Any batch size works:
+  the kernel loops batch rows and gradient entries over its threads.
 
 ``onehot_forward_logits`` (a TPU matmul stand-in for a gather) is not
 ported: ``models.mf.forward_logits`` computes the same values.
@@ -43,6 +46,10 @@ SMEM_PER_BLOCK = 232_448    # bytes of shared memory one Hopper block may use
 # threads (C = 1: one block, no cluster), tried largest first; or PACKED, a
 # run on one block of 256 threads, three to an SM where shared memory allows.
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
+# The sizes every Hopper card schedules, the gate's basis: C = 16 needs the
+# non-portable cluster attribute, which a card may refuse, so it stays a
+# choice of the chooser only.
+PORTABLE_CLUSTERS = (1, 2, 4, 8)
 PACKED = 0
 _MODES = {"full": 0, "uij": 1, "none": 2}
 _STREAM_ARRAYS = {"full": 1, "uij": 2, "none": 4}
@@ -76,23 +83,77 @@ def epoch_smem_bytes(n: int, m: int, d: int, batch_size: int,
                            + 2)
 
 
+def min_cluster(n: int, m: int, d: int, batch_size: int) -> Optional[int]:
+    """The smallest C of ``PORTABLE_CLUSTERS`` at which one block of a run
+    (its share of the rows, and the batch's scratch) fits a block's shared
+    memory; None where none does."""
+    return next((c for c in PORTABLE_CLUSTERS
+                 if epoch_smem_bytes(n, m, d, batch_size, c)
+                 <= SMEM_PER_BLOCK), None)
+
+
 def epoch_kernel_supported(n: int, m: int, d: int, batch_size: int) -> bool:
-    """Does one run's epoch fit a thread block?  Shape-only, at C = 1, so
-    the choice of trainer does not depend on R."""
-    return epoch_smem_bytes(n, m, d, batch_size) <= SMEM_PER_BLOCK
+    """Does one run's epoch fit a cluster of blocks of a portable size?
+    Shape-only (no R, no card), so the choice of trainer depends on
+    neither."""
+    return min_cluster(n, m, d, batch_size) is not None
 
 
-def choose_cluster(runs: int, resident_runs: Callable[[int], int]) -> int:
-    """The launch shape: the largest C of ``CLUSTER_SIZES`` for which
-    ``resident_runs(C)`` (runs the card holds at once on clusters of C
-    blocks of 512 threads) is at least ``runs``, so every run is resident
-    in one wave; else PACKED (more runs than the card holds one to an SM:
-    several runs share each SM)."""
-    if runs >= 1:
-        for c in CLUSTER_SIZES:
-            if resident_runs(c) >= runs:
-                return c
-    return PACKED
+def choose_cluster(runs: int, resident_runs: Callable[[int], int],
+                   floor: int = 1) -> int:
+    """The launch shape among the C of ``CLUSTER_SIZES`` at or above
+    ``floor`` (the smallest C whose block fits, :func:`min_cluster`): the
+    largest C for which ``resident_runs(C)`` (runs the card holds at once
+    on clusters of C blocks of 512 threads) is at least ``runs``, so every
+    run is resident in one wave; else, at ``floor`` 1, PACKED (more runs
+    than the card holds one to an SM: several runs share each SM; its
+    block is the C = 1 block); else the C with the most resident runs (the
+    largest on a tie), whose clusters then run in waves.  Raises where the
+    card holds no cluster of any of those sizes."""
+    if runs < 1:
+        return PACKED if floor == 1 else floor
+    held = {}
+    for c in CLUSTER_SIZES:
+        if c < floor:
+            break
+        held[c] = resident_runs(c)
+        if held[c] >= runs:
+            return c
+    if floor == 1:
+        return PACKED
+    best = max(held, key=lambda c: (held[c], c))
+    if held[best] < 1:
+        raise ValueError(f"choose_cluster: the card holds no cluster of any "
+                         f"size from C = {floor} up")
+    return best
+
+
+def check_launch_shape(who: str, cluster: Optional[int],
+                       floor: Optional[int], smem: Callable[[int], int]
+                       ) -> None:
+    """Raise ``ValueError`` unless ``floor`` (the smallest C that fits) is
+    not None and a forced ``cluster`` (None: the chooser's) is PACKED or a
+    ``CLUSTER_SIZES`` entry whose block fits, at or above ``floor``.
+    ``smem(C)`` gives the shared memory of one block at C."""
+    if floor is None:
+        c = PORTABLE_CLUSTERS[-1]
+        raise ValueError(
+            f"{who}: needs {smem(c)} B of shared memory in each block even "
+            f"at C = {c}, the largest portable cluster (limit "
+            f"{SMEM_PER_BLOCK}; a block holds its share of the rows' state, "
+            f"moments and list heads, and the batch's scratch)")
+    if cluster is None:
+        return
+    if cluster not in CLUSTER_SIZES + (PACKED,):
+        raise ValueError(f"{who}: cluster={cluster}, expected PACKED "
+                         f"({PACKED}) or one of {CLUSTER_SIZES}")
+    if max(cluster, 1) < floor:
+        name = "PACKED (the C = 1 block)" if cluster == PACKED \
+            else f"C = {cluster}"
+        raise ValueError(
+            f"{who}: cluster={cluster}: {name} needs {smem(cluster)} B of "
+            f"shared memory in one block (limit {SMEM_PER_BLOCK}); the "
+            f"smallest C that fits this shape is {floor}")
 
 
 def block_threads(cluster: int) -> int:
@@ -271,22 +332,32 @@ _printed_clusters: set = set()
 
 
 def cluster_size(runs: int, n: int, m: int, d: int, batch_size: int,
-                 device) -> int:
+                 device, floor: Optional[int] = None) -> int:
     """:func:`choose_cluster` for this shape on ``device``, from the card's
-    occupancy query.  Printed once per process and choice."""
+    occupancy query, at or above ``floor`` (None: K1's,
+    :func:`min_cluster`; a shape no portable C fits raises).  Printed once
+    per process and choice, with the floor."""
+    if floor is None:
+        floor = min_cluster(n, m, d, batch_size)
+        check_launch_shape(
+            "cluster_size", None, floor,
+            lambda c: epoch_smem_bytes(n, m, d, batch_size, c))
     idx = torch.device(device).index
     idx = torch.cuda.current_device() if idx is None else idx
     query = lambda c: epoch_occupancy(n, m, d, batch_size, c, idx)[1]
-    c = choose_cluster(runs, query)
-    choice = (idx, runs, n, m, d, batch_size, c)
+    c = choose_cluster(runs, query, floor)
+    choice = (idx, runs, n, m, d, batch_size, floor, c)
     if choice not in _printed_clusters:
         _printed_clusters.add(choice)
-        blocks = epoch_occupancy(n, m, d, batch_size, c, idx)[0]
+        blocks, held = epoch_occupancy(n, m, d, batch_size, c, idx)
         ctas = max(c, 1)
+        waves = -(-runs // held) if held else 0
         print(f"mfcd_tpu_torch: epoch kernel = {runs} runs x {ctas} "
               f"block{'s' if ctas > 1 else ''} per run of "
               f"{block_threads(c)} threads (n={n}, m={m}, d={d}, "
-              f"bs={batch_size}; {blocks} blocks per SM)", flush=True)
+              f"bs={batch_size}; smallest C {floor}; {blocks} blocks per SM"
+              + (f"; {held} runs resident, {waves} waves" if waves > 1
+                 else "") + ")", flush=True)
     return c
 
 
@@ -314,8 +385,10 @@ def _train_epoch(state: EpochState, stream, lr, wd, step0, count,
                  b2: float = 0.999, eps: float = 1e-8,
                  cluster: Optional[int] = None):
     """:func:`train_epoch` at launch shape ``cluster`` (PACKED or a
-    ``CLUSTER_SIZES`` entry; None: :func:`cluster_size` chooses), for the
-    checks that every launch shape gives the same bits."""
+    ``CLUSTER_SIZES`` entry whose block fits; None: :func:`cluster_size`
+    chooses), for the checks that every launch shape gives the same bits.
+    On the card a forced ``cluster`` below the smallest C that fits, PACKED
+    included, raises ``ValueError`` before any launch."""
     global EPOCH_LAUNCHES
     dev = state.u_t.device
     if dev.type == "cpu":
@@ -334,15 +407,9 @@ def _train_epoch(state: EpochState, stream, lr, wd, step0, count,
         raise ValueError(f"train_epoch: pack {mode!r} takes "
                          f"{_STREAM_ARRAYS[mode]} stream arrays")
     num_batches, bs = stream[0].shape[1:]
-    if not epoch_kernel_supported(n, m, d, bs):
-        raise ValueError(
-            f"train_epoch: n={n}, m={m}, d={d}, bs={bs} needs "
-            f"{epoch_smem_bytes(n, m, d, bs)} B of shared memory in one "
-            f"block (limit {SMEM_PER_BLOCK}; the state, its moments and the "
-            f"list heads of every row, at one block per run)")
-    if cluster is not None and cluster not in CLUSTER_SIZES + (PACKED,):
-        raise ValueError(f"train_epoch: cluster={cluster}, expected PACKED "
-                         f"({PACKED}) or one of {CLUSTER_SIZES}")
+    floor = min_cluster(n, m, d, bs)
+    check_launch_shape(f"train_epoch: n={n}, m={m}, d={d}, bs={bs}", cluster,
+                       floor, lambda c: epoch_smem_bytes(n, m, d, bs, c))
     f32, i32 = torch.float32, torch.int32
     for name, a, rows in zip(EpochState._fields, state, (n, m, n, n, m, m)):
         _check(name, a, f32, (r, d, rows), dev)
@@ -362,7 +429,7 @@ def _train_epoch(state: EpochState, stream, lr, wd, step0, count,
     b1f, omb1, b2f, omb2, log_b1, log_b2 = _adam_consts(b1, b2)
     loss = torch.empty(r, dtype=f32, device=dev)
     if cluster is None:
-        cluster = cluster_size(r, n, m, d, bs, dev)
+        cluster = cluster_size(r, n, m, d, bs, dev, floor)
     lib = _library()
     err = lib.mfcd_train_epoch(
         *(a.data_ptr() for a in state), *(ptr(a) for a in s_ints), ptr(s_z),

@@ -31,7 +31,7 @@ from mfcd_tpu_torch.data.btl import LabeledSplit, label_splits, sample_and_split
 from mfcd_tpu_torch.eval.metrics import compute_all_metrics
 from mfcd_tpu_torch.genx import generate_x
 from mfcd_tpu_torch.models.mf import init_params
-from mfcd_tpu_torch.ops.kernels import epoch_kernel_supported
+from mfcd_tpu_torch.ops.kernels import epoch_kernel_supported, min_cluster
 from mfcd_tpu_torch.ops.shuffle import default_reshuffle_period
 from mfcd_tpu_torch.train.kernel_trainer import train_runs_kernel
 from mfcd_tpu_torch.train.trainer import _pad_last, train_model
@@ -69,21 +69,24 @@ _logged_kernel_choice: Optional[tuple] = None
 
 
 def default_use_kernel(cfg: RunConfig, device) -> bool:
-    """The fused-epoch kernel trainer on CUDA when its state fits a block.
+    """The fused-epoch kernel trainer on CUDA when a run fits a cluster of
+    blocks of a portable size (``ops.kernels.min_cluster``).
 
     Mirrors ``default_use_pallas``: decided from the shape alone, before any
-    launch.  Printed once per process and decision."""
+    launch and without the card.  Printed once per process and decision,
+    with the smallest cluster size that fits."""
     global _logged_kernel_choice
     device = torch.device(device)
-    supported = epoch_kernel_supported(cfg.n, cfg.m, cfg.d, cfg.batch_size)
-    use = supported and device.type == "cuda"
+    floor = min_cluster(cfg.n, cfg.m, cfg.d, cfg.batch_size)
+    use = floor is not None and device.type == "cuda"
     choice = (device.type, cfg.n, cfg.m, cfg.d, cfg.batch_size, use)
     if _logged_kernel_choice != choice:
         _logged_kernel_choice = choice
         print(f"mfcd_tpu_torch: trainer = "
               f"{'fused-epoch kernel' if use else 'eager'} on {device.type} "
               f"(n={cfg.n}, m={cfg.m}, d={cfg.d}, bs={cfg.batch_size}, "
-              f"kernel fits: {supported})", flush=True)
+              f"kernel fits: {floor is not None}"
+              + (f", smallest C {floor}" if floor else "") + ")", flush=True)
     return use
 
 

@@ -188,6 +188,59 @@ def test_kernel_at_every_cluster_size(cluster):
         assert all(torch.equal(x, y) for x, y in zip(got, other))
 
 
+def _scheduled(n, dev, floor):
+    """The launch shapes from ``floor`` up that the card schedules."""
+    return [c for c in K.CLUSTER_SIZES if c >= floor and K.epoch_occupancy(
+        n, n, 2, 64, c, dev.index or 0)[1] > 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,floor", [(5000, 2), (10_000, 4)])
+def test_kernel_at_a_floor(n, floor):
+    # n = m past one block a run (smallest C 2 and 4), pack "none": against
+    # the plain version, rows at the edges of each share, and bit-equal at
+    # every C from the floor the card schedules; below it (and packed) the
+    # launch is refused before it reaches the card.
+    dev = _card()
+    assert K.min_cluster(n, n, 2, 64) == floor
+    state, args, pack = _inputs(21, n, n, 2, 64, 16, [1024, 1000, 777],
+                                [1e-3, 3e-3, 1e-2], "none", dev,
+                                rows=_edge_rows(n, n, floor))
+    assert pack[0] == "none"
+    got = _flat(_compare(state, args, pack, dev))
+    shapes = _scheduled(n, dev, floor)
+    assert K.cluster_size(3, n, n, 2, 64, dev) in shapes
+    for c in shapes:
+        again = _k1(state, args, pack, dev, c)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), c
+    for bad in (K.PACKED,) + tuple(k for k in (1, 2) if k < floor):
+        before = K.EPOCH_LAUNCHES
+        with pytest.raises(ValueError, match="smallest C that fits this "
+                                             f"shape is {floor}"):
+            _k1(state, args, pack, dev, bad)
+        assert K.EPOCH_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_kernel_in_two_waves():
+    # One run more than the card holds at once at the floor: the clusters
+    # queue in a second wave, with the same bits as the plain version's
+    # bound and as every other launch shape.
+    dev = _card()
+    n = 5000
+    floor = K.min_cluster(n, n, 2, 64)
+    held = K.epoch_occupancy(n, n, 2, 64, floor, dev.index or 0)[1]
+    r = held + 1
+    state, args, pack = _inputs(22, n, n, 2, 64, 4, [256] * (r - 1) + [200],
+                                list(np.geomspace(1e-3, 1e-2, r)), "none",
+                                dev)
+    assert K.cluster_size(r, n, n, 2, 64, dev) == floor
+    got = _flat(_compare(state, args, pack, dev))
+    for c in _scheduled(n, dev, floor):
+        again = _k1(state, args, pack, dev, c)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), c
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["small", "canonical"])
 def test_kernel_matches_plain_version_bs1024(shape):

@@ -280,13 +280,24 @@ def test_smem_formulas_at_the_profiler_shape(kernel, cluster):
 @pytest.mark.parametrize("kernel", list(KS.VARIANTS) + [KS.FACTORED])
 def test_shared_memory_gate(kernel):
     # Any batch size whose block fits (no one-row-per-thread cap): bs = 1024
-    # at the profiler's shape; a shape over the limit raises.
+    # at the profiler's shape; a shape over the limit raises.  P1 takes K1's
+    # gate (n = m = 10,000 from C = 4); P2 keeps its layout's row limit.
     rows = KS.FACTORED_ROWS if kernel == KS.FACTORED else 1000
     assert KS.split_kernel_supported(rows, rows, 2, 1024, kernel)
     KS._check_fits("t", rows, rows, 2, 1024, kernel)
-    assert not KS.split_kernel_supported(10_000, 10_000, 2, 64, kernel)
-    with pytest.raises(ValueError, match="shared memory"):
-        KS._check_fits("t", 10_000, 10_000, 2, 64, kernel)
+    factored = kernel == KS.FACTORED
+    assert KS.split_kernel_supported(10_000, 10_000, 2, 64, kernel) \
+        == (not factored)
+    assert KS.split_min_cluster(10_000, 10_000, 2, 64, kernel) == (
+        None if factored else K.min_cluster(10_000, 10_000, 2, 64))
+    if factored:
+        with pytest.raises(ValueError, match="factored layout holds"):
+            KS._check_fits("t", 10_000, 10_000, 2, 64, kernel)
+    else:
+        assert KS._check_fits("t", 10_000, 10_000, 2, 64, kernel) == 4
+        with pytest.raises(ValueError, match="shared memory"):
+            KS._check_fits("t", 30_000, 30_000, 2, 64, kernel)
+    assert not KS.split_kernel_supported(30_000, 30_000, 2, 64, kernel)
     assert not hasattr(KS, "MAX_BATCH")
 
 
