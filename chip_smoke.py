@@ -132,7 +132,27 @@ Phases, each of which raises on failure (nothing is caught and continued):
    failure-flag all_reduce and one all_gather_object a chunk, whatever
    its size), results equal to the unsharded bucket's within (b)'s bound
    of [11]; (d) the forward probe (``scripts/graft_entry.py``) on the card
-   against the same params on the CPU, within 1e-6 x max|p| + 1e-7.
+   against the same params on the CPU, within 1e-6 x max|p| + 1e-7;
+13. label redundancy at the canonical width: (a) K1 against its plain
+   version on hard K = 10's stream (pack "full", 12,500 of 16,384 padded
+   batches, R = 2) and soft K = 50's (pack "uij", z = k / 50, 1,250 of
+   2,048), two launches and the chosen launch shape bit-equal to C = 1
+   and packed, with ms an epoch, us a step, the bound and the plain
+   version's ms; (b) ``python3 -m mfcd_tpu_torch.bench --quick`` in a
+   subprocess (one JSON line: the JAX bench's metric name, a value above
+   0, the card), then the bench's default headline (with its K = 10 kernel
+   path), ``--sweep`` and ``--k50`` through ``bench.run_mode`` without the
+   autograd child: runs/hour, s/run, 30 K1 launches a call or chunk, peak
+   memory per run beside ``run_bytes``, accuracy above 0.6 at the
+   canonical configuration and at K = 50, and a K = 50 call with the
+   stage spans synchronised; (c) ``run_config`` at hard K = 10 (1 epoch)
+   with K1 against the autograd trainer on the card, within [5]'s bound,
+   and the autograd ms a step; (d) ``parameter_scan_fast`` over the
+   notebook's soft K axis (K = 1, 2, 4, 10, 50 at s = 5, wd = 5e-6, 30
+   epochs, reps = 2): one chunk a K, 30 K1 launches each, every key
+   finite, accuracy above 0.6, peak memory per run under ``run_bytes``,
+   s/run by K; then soft K = 10 at 2 epochs
+   on the card against the CPU, within [5]'s bound.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -238,6 +258,26 @@ TRAINER_CHECK = dict(n=5000, m=5000, d=2, p=0.02, s=5.0, lr=1e-3,
                      weight_decay=1e-5, num_epochs=2, reps=1)
 WEAK_RANKS = (1, 2)
 PROBE_RTOL, PROBE_ATOL = 1e-6, 1e-7
+# [13] Label redundancy at the canonical width (n = m = 1000, d = 2,
+# bs = 64).  K1's cases, at the streams the main path gives it: (label,
+# seed, pack, soft K, padded batches, counts).  Hard K = 10 multiplies the
+# training rows by 10 (800,000: 12,500 steps of 16,384 padded batches);
+# soft K = 50 keeps 80,000 rows, z = k / 50 as float32 in pack "uij"
+# (1,250 steps of the fast path's 2,048).
+K_CASES = (("hard K=10", 21, "full", None, 16_384, [800_000, 799_983]),
+           ("soft K=50", 22, "uij", 50, 2048, [80_000, 79_990]))
+# K1 against the autograd trainer at hard K = 10 (one epoch), and the
+# notebook's K axis (cell 5's K values at one s and one wd) on the fast
+# path, then soft K = 10 card against CPU.
+K_TRAINER_CHECK = dict(n=1000, m=1000, d=2, p=0.2, s=5.0, lr=1e-3,
+                       weight_decay=5e-6, num_epochs=1, reps=1, K=10)
+K_AXIS = dict(n=1000, m=1000, d=2, p=0.2, s=5.0, K=[1, 2, 4, 10, 50],
+              soft_label=True, weight_decay=5e-6, lr=1e-3, num_epochs=30,
+              reps=2)
+K_CARD_CPU = dict(n=1000, m=1000, d=2, p=0.2, s=[5.0], K=10,
+                  soft_label=True, weight_decay=5e-6, lr=1e-3, num_epochs=2,
+                  reps=1)
+ACC_MIN = 0.6
 
 
 def log(msg: str) -> None:
@@ -249,9 +289,10 @@ def fail(msg: str) -> None:
 
 
 def make_epoch_inputs(seed, r, n, m, d, bs, num_batches, counts, lrs, mode,
-                      device, rows_fn=None):
+                      device, rows_fn=None, soft_k=None):
     """Random state and a random valid stream, packed as ``mode`` says;
-    ``rows_fn(r, rows)`` replaces the random (u, i, j)."""
+    ``rows_fn(r, rows)`` replaces the random (u, i, j); ``soft_k`` draws
+    soft labels, z = k / soft_k (pack "uij" only)."""
     from mfcd_tpu_torch.ops.kernels import EpochState
     from mfcd_tpu_torch.train.kernel_trainer import _pack_spec
 
@@ -271,6 +312,10 @@ def make_epoch_inputs(seed, r, n, m, d, bs, num_batches, counts, lrs, mode,
     if rows_fn is not None:
         u, i, j = (np.asarray(a, np.int32) for a in rows_fn(r, rows))
     z = (g.random((r, rows)) < 0.5).astype(np.float32)
+    if soft_k:
+        assert mode == "uij"
+        z = (g.integers(0, soft_k + 1, (r, rows)) / soft_k).astype(
+            np.float32)
     valid = np.arange(rows)[None, :] < counts[:, None]
     u, i, j, z = (np.where(valid, a, 0).astype(a.dtype) for a in (u, i, j, z))
     spec = _pack_spec(n, m, 1)
@@ -283,7 +328,7 @@ def make_epoch_inputs(seed, r, n, m, d, bs, num_batches, counts, lrs, mode,
     elif mode == "uij":
         _, bn, bm, _ = spec
         stream = (u | (i << bn) | (j << (bn + bm)), z)
-        pack = ("uij", bn, bm, 0, 1)
+        pack = ("uij", bn, bm, 0, soft_k or 1)
     else:
         stream = (u, i, j, z)
         pack = ("none", 0, 0, 0, 1)
@@ -931,7 +976,9 @@ def fast_scan_by_chunk(grid, field, phase):
     blocks and fewest test labels recorded.  Fails unless the epoch kernel
     launched once per epoch per chunk, each value of ``grid[field]`` took
     one chunk, every result has the schema and finite values, no count is
-    above its target and every run has at least 500 test labels.  Returns
+    above its target and every run has at least 500 test labels.  A
+    chunk's ``peak`` counts what the process held before it, ``own_peak``
+    only what the chunk added.  Returns
     (the scan's results, results by value, chunks by value, launches,
     wall)."""
     import mfcd_tpu_torch
@@ -947,6 +994,7 @@ def fast_scan_by_chunk(grid, field, phase):
     def timed_run(cfg, keys, *args, **kw):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         passes, blocks = strategies.CASCADE_PASSES, strategies.CASCADE_BLOCKS
         t0 = time.perf_counter()
         out = device_run(cfg, keys, *args, **kw)
@@ -956,6 +1004,7 @@ def fast_scan_by_chunk(grid, field, phase):
             cfg=cfg, runs=runs,
             s=time.perf_counter() - t0,
             peak=torch.cuda.max_memory_allocated() / runs,
+            own_peak=(torch.cuda.max_memory_allocated() - held) / runs,
             counts=out["sample_count"].reshape(-1).tolist(),
             budgets=np.repeat(kw["budgets"], cfg.reps).tolist(),
             passes=strategies.CASCADE_PASSES - passes,
@@ -1631,15 +1680,32 @@ def _phase_timing(ak, phase, args, rows, placements=False):
     return out
 
 
+def _plain_phase_on_cpu(args):
+    """The CPU's plain DCD phase on ``args`` (numpy arrays in place of the
+    tensors), in a worker process; returns ((table, dual) as numpy arrays,
+    its ms)."""
+    from mfcd_tpu_torch.ops import altsvm_kernels as ak
+
+    args = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                 for a in args)
+    t0 = time.perf_counter()
+    out = ak.dcd_phase(*args)
+    return tuple(a.numpy() for a in out), (time.perf_counter() - t0) * 1e3
+
+
 def altsvm_main_shape_check(dev, state, comps, key, smi):
     """[9b] K2 at the main path's shape bit-equal to the CPU's plain
     version, on the first epoch's inputs as ``train_altsvm`` makes them
     (its keys, picks and zeroed tables and duals; the user phase fed the
-    plain item phase's V), K2 timed at every table placement; then the
-    same phases on a skewed set, the item phase (its chain the deepest)
-    bit-equal to the CPU's plain version too.  Returns per phase the
-    difference, K2's and its schedule's ms, the chain depth, the plain
-    version's ms and the bound."""
+    item phase's V), K2 timed at every table placement; then the same
+    phases on a skewed set, the item phase (its chain the deepest)
+    bit-equal to the CPU's plain version too.  The three CPU phases run
+    side by side in worker processes while the card is timed.  Returns
+    per phase the difference, K2's and its schedule's ms, the chain
+    depth, the plain version's ms and the bound."""
+    import concurrent.futures
+    import multiprocessing
+
     from mfcd_tpu_torch.core import prng
     from mfcd_tpu_torch.models import altsvm
     from mfcd_tpu_torch.ops import altsvm_kernels as ak
@@ -1648,38 +1714,55 @@ def altsvm_main_shape_check(dev, state, comps, key, smi):
     dual0 = torch.zeros_like(state.alpha)
     steps = ALT_T * ALT_SWEEPS
     skewed = _alt_comparisons(dev, ALT_T, 13, skew=True)
+    picks = {"items": altsvm._picks(k1, ALT_T, ALT_SWEEPS),
+             "users": altsvm._picks(k2, ALT_T, ALT_SWEEPS)}
+    tables = {"items": torch.zeros_like(state.movie_features),
+              "users": torch.zeros_like(state.user_features)}
+    phase_args = lambda phase, fixed, cs: (
+        phase, tables[phase], fixed, dual0, picks[phase], *cs, 0.1, 1.0)
+    # The item phases first; each user phase is fed its item phase's V
+    # (the card's, held bit-equal to the CPU's below).
+    args = {"items": phase_args("items", state.user_features, comps)}
+    sargs = {"items": phase_args("items", state.user_features, skewed)}
+    got = {"items": ak.dcd_phase(*args["items"])}
+    sgot = {"items": ak.dcd_phase(*sargs["items"])}
+    args["users"] = phase_args("users", got["items"][0], comps)
+    sargs["users"] = phase_args("users", sgot["items"][0], skewed)
+    got["users"] = ak.dcd_phase(*args["users"])
+    sgot["users"] = ak.dcd_phase(*sargs["users"])
+    to_numpy = lambda a: tuple(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                               else x for x in a)
     out = {}
-    fixed = fixed_skew = state.user_features
-    for phase, pkey, table in (
-            ("items", k1, torch.zeros_like(state.movie_features)),
-            ("users", k2, torch.zeros_like(state.user_features))):
-        rows = table.shape[0]
-        picks = altsvm._picks(pkey, ALT_T, ALT_SWEEPS)
-        args = (phase, table, fixed, dual0, picks, *comps, 0.1, 1.0)
-        got = ak.dcd_phase(*args)
-        cpu_args = _on_cpu(args)
-        t0 = time.perf_counter()
-        cpu = ak.dcd_phase(*cpu_args)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = dcd_compare("[9b]", phase, got, (("the CPU's plain", cpu),))
-        timing = _phase_timing(ak, phase, args, rows, placements=True)
-        depth = chain_depth(phase, picks, comps)
-        least, by = dcd_bound_ms(phase, ALT_T, steps, ALT_F)
-        # The skewed set: its item chain is the deepest, so the item phase
-        # is held against the CPU's plain version as well.
-        sargs = (phase, table, fixed_skew, dual0, picks, *skewed, 0.1, 1.0)
-        sgot = ak.dcd_phase(*sargs)
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=3,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {name: pool.submit(_plain_phase_on_cpu, to_numpy(a))
+                for name, a in (("items", args["items"]),
+                                ("users", args["users"]),
+                                ("skewed", sargs["items"]))}
+        for phase in ("items", "users"):
+            rows = tables[phase].shape[0]
+            out[phase] = dict(
+                chain_depth=chain_depth(phase, picks[phase], comps),
+                skewed=dict(_phase_timing(ak, phase, sargs[phase], rows),
+                            chain_depth=chain_depth(phase, picks[phase],
+                                                    skewed),
+                            checked=phase == "items"),
+                **_phase_timing(ak, phase, args[phase], rows,
+                                placements=True))
+        cpu = {name: job.result() for name, job in jobs.items()}
+    as_ref = lambda name: (("the CPU's plain",
+                            tuple(torch.from_numpy(a) for a in cpu[name][0])),)
+    for phase in ("items", "users"):
+        err = dcd_compare("[9b]", phase, got[phase], as_ref(phase))
         if phase == "items":
-            err = max(err, dcd_compare(
-                "[9b] skewed", phase, sgot,
-                (("the CPU's plain", ak.dcd_phase(*_on_cpu(sargs))),)))
-        skew = dict(_phase_timing(ak, phase, sargs, rows),
-                    chain_depth=chain_depth(phase, picks, skewed),
-                    checked=phase == "items")
-        out[phase] = dict(err=err, plain_ms=plain_ms, bound_ms=least,
-                          bound_by=by, chain_depth=depth, skewed=skew,
-                          **timing)
+            err = max(err, dcd_compare("[9b] skewed", phase, sgot[phase],
+                                       as_ref("skewed")))
+        least, by = dcd_bound_ms(phase, ALT_T, steps, ALT_F)
         o = out[phase]
+        o.update(err=err, plain_ms=cpu[phase][1], bound_ms=least,
+                 bound_by=by)
+        skew, depth = o["skewed"], o["chain_depth"]
         log(f"  [9b] K2 {phase} phase at T={ALT_T}, {steps} steps: "
             f"{o['ms']:.4f} ms ({1e3 * o['ms'] / steps:.5f} us a step; "
             + ", ".join(f"{m} {ms:.4f}" for m, ms in
@@ -1687,13 +1770,12 @@ def altsvm_main_shape_check(dev, state, comps, key, smi):
             + f" ms by placement), the schedule alone "
             f"{o['schedule_ms']:.4f} ms; chain depth {depth} "
             f"({1e3 * o['ms'] / depth:.3f} us a level); plain on the CPU "
-            f"{plain_ms:.1f} ms; bound {least:.6f} ms ({by}; "
+            f"{o['plain_ms']:.1f} ms (three CPU phases side by side); bound "
+            f"{least:.6f} ms ({by}; "
             f"{step_bytes_ms(phase, steps, ALT_F):.6f} ms by the bytes each "
             f"step touches); skewed set: {skew['ms']:.4f} ms, schedule "
             f"{skew['schedule_ms']:.4f}, chain depth {skew['chain_depth']}"
             f"{', bit-equal to the CPU' if skew['checked'] else ''}; {smi}")
-        fixed = cpu[0].to(dev)
-        fixed_skew = sgot[0]
     return out
 
 
@@ -2295,6 +2377,213 @@ def _gap_text(gaps) -> str:
             "svd_error_scaled squared)")
 
 
+def k_kernel_phase(dev, smi):
+    """[13a] K1 against its plain version on the card at the label
+    redundancy streams of ``K_CASES`` (R = 2), two launches and the chosen
+    launch shape bit-equal to C = 1 and packed; ms an epoch, us a step,
+    the bound and the plain version's ms.  Returns (max |diff|, entries)."""
+    from mfcd_tpu_torch.ops import kernels
+    from mfcd_tpu_torch.scripts.profile_kernel_split import median_ms
+
+    n = m = 1000
+    d, bs, r = 2, 64, 2
+    worst, entries = 0.0, []
+    for label, seed, mode, soft_k, nb, counts in K_CASES:
+        inp = make_epoch_inputs(seed, r, n, m, d, bs, nb, counts,
+                                [1e-3, 3e-3], mode, dev, soft_k=soft_k)
+        tag = f"[13a] {label} ({nb} batches, pack {mode})"
+        err, plain_ms, _ = compare_epoch(inp, tag)
+        worst = max(worst, err)
+        k1_launch_checks(inp, tag)
+        args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"],
+                inp["count"])
+        ms = median_ms(lambda st: kernels.train_epoch(
+            st, *args, pack=inp["pack"]), inp["state"], warmup=1, reps=5)
+        steps = executed_steps(inp, bs) / r
+        bound, by = epoch_bound_ms(inp, n, m, d, bs)
+        entry = dict(label=label, r=r, pack=mode, padded_batches=nb,
+                     steps=steps, max_abs_err=err,
+                     cluster=kernels.cluster_size(r, n, m, d, bs, dev),
+                     ms=ms, us_per_step=ms * 1e3 / steps, bound_ms=bound,
+                     bound_by=by, plain_ms=plain_ms)
+        log(f"{tag}: K1 at C={entry['cluster']} {ms:.4f} ms an epoch "
+            f"({entry['us_per_step']:.4f} us a step over {steps:.0f} "
+            f"steps), plain {plain_ms:.2f} ms, bound {bound:.6f} ms ({by});"
+            f" {smi}")
+        entries.append(entry)
+    return worst, entries
+
+
+def bench_phase(smi):
+    """[13b] ``python3 -m mfcd_tpu_torch.bench --quick`` in a subprocess
+    (rc 0, one JSON line: the JAX bench's metric name, a value above 0,
+    the card); then ``bench.run_mode`` for the default headline (with its
+    K = 10 kernel path), ``--sweep`` and ``--k50``, the autograd child
+    skipped: 30 K1 launches a call (30 a chunk in the sweep), peak memory
+    per run beside ``run_bytes``, accuracy above ACC_MIN at the canonical
+    configuration and at K = 50; then one more K = 50 call with the card
+    synchronised at the stage spans.  Returns the numbers by mode."""
+    import subprocess
+
+    from mfcd_tpu_torch import bench
+    from mfcd_tpu_torch.sweep import batched
+    from mfcd_tpu_torch.sweep.batched import run_bucket
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mfcd_tpu_torch.bench", "--quick"],
+        stdout=subprocess.PIPE, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"[13b] bench --quick: rc {proc.returncode}, stdout "
+             f"{proc.stdout[-2000:]!r}")
+    rec = json.loads(lines[0])
+    if (rec.get("metric") != bench.METRICS["quick"]
+            or not rec.get("value", 0) > 0 or rec.get("card") != smi
+            or rec.get("unit") != bench.UNIT):
+        fail(f"[13b] bench --quick line {rec}")
+    log(f"[13b] python3 -m mfcd_tpu_torch.bench --quick: one JSON line in "
+        f"{time.perf_counter() - t0:.1f} s: {lines[0]}")
+
+    out = {"quick": rec}
+    for mode in ("default", "sweep", "k50"):
+        payload, measured = bench.run_mode(mode, "cuda", jnp_timeout_s=0)
+        if payload["metric"] != bench.METRICS[mode] or payload["card"] != smi:
+            fail(f"[13b] {mode}: line {payload}")
+        for meas in measured:
+            cfg = meas["cfg"]
+            if mode == "sweep":
+                t_cap = compile_caps(cfg)[0]
+                per_chunk = min(meas["configs"], batched.default_max_bucket(
+                    cfg, t_cap=t_cap, device="cuda"))
+                chunks = -(-meas["configs"] // per_chunk)
+                chunk_runs = per_chunk * cfg.reps
+            else:
+                t_cap, chunks, chunk_runs = None, 1, meas["runs"]
+            want = cfg.num_epochs * chunks
+            if meas["k1_launches"] != want:
+                fail(f"[13b] {meas['label']}: {meas['k1_launches']} K1 "
+                     f"launches, expected {want}")
+            if not all(math.isfinite(a) for a in meas["accuracy"]):
+                fail(f"[13b] {meas['label']}: accuracy {meas['accuracy']}")
+            if (meas["label"] in ("canonical", "K=50 pallas")
+                    and not min(meas["accuracy"]) > ACC_MIN):
+                fail(f"[13b] {meas['label']}: accuracy {meas['accuracy']} "
+                     f"not above {ACC_MIN}")
+            peak = meas["peak_bytes"] / chunk_runs
+            est = batched.run_bytes(cfg, t_cap)
+            out[meas["label"]] = dict(
+                metric=payload["metric"] if meas is measured[0] else None,
+                runs=meas["runs"], wall=meas["wall"],
+                warm_wall=meas["warm_wall"], s_per_run=meas["s_per_run"],
+                runs_per_hour=meas["runs_per_hour"],
+                k1_launches=meas["k1_launches"], peak_per_run=peak,
+                run_bytes=est, accuracy=meas["accuracy"][:5])
+            log(f"[13b] bench {mode}, {meas['label']}: {meas['runs']} runs, "
+                f"{meas['runs_per_hour']:.1f} runs/hour, "
+                f"{meas['s_per_run']:.4f} s/run (steady {meas['wall']:.3f} "
+                f"s" + (f", warm {meas['warm_wall']:.3f} s"
+                        if meas["warm_wall"] is not None else "")
+                + f"), {meas['k1_launches']} K1 launches ({chunks} "
+                f"chunk{'s' if chunks > 1 else ''}), peak "
+                f"{peak / 1e6:.1f} MB/run, run_bytes {est / 1e6:.1f} MB/run, "
+                f"accuracy head {[round(a, 4) for a in meas['accuracy'][:5]]}"
+                f"; {smi}")
+        log(f"[13b] bench {mode} line {json.dumps(payload)}")
+
+    k50 = out["K=50 pallas"]
+    cfg = measured[0]["cfg"]  # the K = 50 call's
+    wall, spans = _synced_spans(lambda: run_bucket(
+        cfg, [{"s": cfg.s, "lr": cfg.lr, "weight_decay": cfg.weight_decay}],
+        [0], seed=bench.TIMED_SEED, device="cuda", use_kernel=True))
+    keep = ("mfcd.sample", "mfcd.label", "mfcd.train.mix",
+            "mfcd.train.epoch", "mfcd.train.val", "mfcd.metrics")
+    k50["spans_ms"] = {k: 1e3 * spans.get(k, 0.0) for k in keep}
+    log(f"[13b] K=50 hard, one call with synchronised spans {wall:.3f} s "
+        f"(steady unsynchronised {k50['wall']:.3f} s): "
+        + ", ".join(f"{k} {1e3 * spans.get(k, 0.0):.1f} ms "
+                    f"({spans.get(k, 0.0) / wall:.1%})" for k in keep)
+        + f"; {smi}")
+    return out
+
+
+def k_trainer_phase(smi):
+    """[13c] ``run_config`` at hard K = 10 (one epoch, reps = 1) with K1
+    and with the autograd trainer on the card: the 23 keys within [5]'s
+    bound.  Returns the autograd ms a step (the call's wall over its
+    steps)."""
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.sweep.engine import run_config
+
+    cfg = RunConfig(**K_TRAINER_CHECK)
+    t0 = time.perf_counter()
+    with_k1 = run_config(cfg, seed=5, use_kernel=True, device="cuda")
+    t_k1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    autograd = run_config(cfg, seed=5, use_kernel=False, device="cuda")
+    t_ag = time.perf_counter() - t0
+    worst = compare_results(with_k1, autograd, "[13c] K1 vs autograd")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    steps = cfg.shapes().train_batches * cfg.num_epochs
+    ms_step = t_ag * 1e3 / steps
+    log(f"[13c] trainers at hard K={cfg.K}, n=m={cfg.n}, "
+        f"{cfg.num_epochs} epoch ({steps} steps): K1 {t_k1:.2f} s, "
+        f"autograd {t_ag:.2f} s ({ms_step:.4f} ms a step, the call's wall "
+        f"over its steps); 23 keys within rtol {CARD_CPU_RTOL}, atol "
+        f"{CARD_CPU_ATOL}; largest |diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in top) + f"; {smi}")
+    return dict(k1_s=t_k1, autograd_s=t_ag, autograd_ms_per_step=ms_step)
+
+
+def k_axis_phase(smi):
+    """[13d] ``parameter_scan_fast`` over the notebook's soft K axis
+    (``K_AXIS``): one chunk a K, 30 K1 launches each, every key finite,
+    the schema valid, accuracy above ACC_MIN at every K, peak memory per
+    run under ``run_bytes``; s/run by K.  Then soft K = 10 at 2 epochs,
+    reps = 1, on the card against the CPU within [5]'s bound.  Returns
+    the launches and s/run by K."""
+    import mfcd_tpu_torch
+    from mfcd_tpu_torch.sweep import batched
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    _, by_k, chunks, launches, wall = fast_scan_by_chunk(K_AXIS, "K",
+                                                         "[13d]")
+    s_per_run = {}
+    for k in K_AXIS["K"]:
+        acc = by_k[k]["accuracy"]
+        if not min(acc) > ACC_MIN:
+            fail(f"[13d] K={k}: accuracy {acc} not above {ACC_MIN}")
+        c = chunks[k]
+        s_per_run[k] = c["s"] / c["runs"]
+        est = batched.run_bytes(c["cfg"], compile_caps(c["cfg"])[0])
+        if c["own_peak"] > est:
+            fail(f"[13d] soft K={k}: peak {c['own_peak'] / 1e6:.1f} MB/run "
+                 f"above run_bytes {est / 1e6:.1f} MB/run")
+        log(f"[13d] soft K={k}: {c['runs']} runs in {c['s']:.3f} s "
+            f"({s_per_run[k]:.4f} s/run), accuracy "
+            f"{[round(a, 4) for a in acc]}, peak {c['own_peak'] / 1e6:.1f} "
+            f"MB/run above what was held before the chunk, run_bytes "
+            f"{est / 1e6:.1f} MB/run; {smi}")
+    log(f"[13d] parameter_scan_fast over soft K {K_AXIS['K']}: "
+        f"{len(chunks)} chunks, {launches} K1 launches, {wall:.3f} s")
+    t0 = time.perf_counter()
+    on_card = mfcd_tpu_torch.parameter_scan(device="cuda", **K_CARD_CPU)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = mfcd_tpu_torch.parameter_scan(device="cpu", **K_CARD_CPU)
+    t_cpu = time.perf_counter() - t0
+    worst = compare_results(on_card[0]["results"], on_cpu[0]["results"],
+                            "[13d] soft K=10 card vs cpu")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[13d] soft K=10, 2 epochs, reps 1: card {t_card:.2f} s, CPU "
+        f"{t_cpu:.2f} s; 23 keys within rtol {CARD_CPU_RTOL}, atol "
+        f"{CARD_CPU_ATOL}; largest |diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in top) + f"; {smi}")
+    return dict(launches=launches, s_per_run=s_per_run, wall=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2425,6 +2714,15 @@ def main() -> int:
     forward_probe_phase(smi)
     log(f"[12] scale: {time.perf_counter() - t0:.1f} s")
 
+    # [13] Label redundancy: K1 at hard K = 10's and soft K = 50's
+    # streams, the bench, K1 against autograd at K = 10, the soft K axis.
+    t0 = time.perf_counter()
+    k_err, k_entries = k_kernel_phase(dev, smi)
+    bench_info = bench_phase(smi)
+    k_trainers = k_trainer_phase(smi)
+    k_axis = k_axis_phase(smi)
+    log(f"[13] label redundancy: {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_train_epoch",
@@ -2432,7 +2730,7 @@ def main() -> int:
         "source": "mfcd_tpu_torch/ops/csrc/epoch_kernel.cu",
         "replaces": "mfcd_tpu/ops/kernels.py:69",
         "launches": launches,
-        "max_abs_err": max(max_err, scale_err),
+        "max_abs_err": max(max_err, scale_err, k_err),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound,
@@ -2445,6 +2743,11 @@ def main() -> int:
         "scale_demo_launches": demo["k1_launches"],
         "weak_scaling_launches": weak,
         "scale_shapes": scale_entries,
+        "label_redundancy": k_entries,
+        "bench": bench_info,
+        "k_trainers": k_trainers,
+        "k_axis_launches": k_axis["launches"],
+        "k_axis_s_per_run": k_axis["s_per_run"],
         "cluster": timings[0]["cluster"],
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,

@@ -12,6 +12,8 @@ several devices on ``torch.distributed``, one process per device: the
 (grid, data, tp)-sharded training step, and ``parameter_scan_fast`` with
 ``mesh=`` sharding each chunk's configurations over the ranks
 (``parallel.multihost`` brings the job up and launches local ranks).
+``python3 -m mfcd_tpu_torch.bench`` times whole runs in runs/hour under
+the root ``bench.py``'s modes and metric names.
 The study's sweeps are in ``experiments.runs``; its figures (``viz``,
 ``experiments.plots``) need matplotlib and are not imported here.  The package imports neither jax nor
 ``mfcd_tpu``; kernels are built with ``nvcc`` at first use.

@@ -56,7 +56,7 @@ from mfcd_tpu_torch.core.results import export_results
 from mfcd_tpu_torch.parallel.mesh import Mesh
 from mfcd_tpu_torch.sampling import dedup, prp, strategies
 from mfcd_tpu_torch.sweep.engine import (DEFAULT_SEED, _run_bucket_device,
-                                         compile_caps, default_use_kernel)
+                                         compile_caps, resolve_use_kernel)
 from mfcd_tpu_torch.utils.io import (append_results, completed_param_sets,
                                      reset_save_path)
 
@@ -65,6 +65,8 @@ from mfcd_tpu_torch.utils.io import (append_results, completed_param_sets,
 _NM_PLANES = 12          # live n x m float32-sized planes at the metrics peak
 _TRAIN_ROW_BYTES = 85    # split 17 + packed stream 4 + 8 int64 shuffle temps
 _EVAL_ROW_BYTES = 17     # u, i, j int32 + label float32 + valid bool
+_VOTE_BYTES = 56         # soft labels: per vote of a training triplet, the
+                         # threefry hash's int64 words at its peak
 _SAMPLE_SLOT_BYTES = 64  # prefix sampler: 8 int64 temporaries per slot
 _DISTINCT_BYTES = 96     # margin: PRP temporaries, candidates, split ranks
 _OVERDRAW_BYTES = 128    # candidates, int64 draws and keys, hash slots
@@ -196,6 +198,7 @@ def run_bucket_async(
     device=None,
     executor: Optional[concurrent.futures.Executor] = None,
     mesh: Optional[Mesh] = None,
+    use_kernel: Optional[bool] = None,
 ) -> BucketFuture:
     """Dispatch a same-shape bucket of configurations on ``device``; returns
     a :class:`BucketFuture` whose ``collect()`` gives one reference results
@@ -208,7 +211,11 @@ def run_bucket_async(
     (the keys are folded from them).  With ``caps`` (a ``(t_cap,
     extra_cap)`` capacity bucket) and ``bucket_configs`` (the per-row
     RunConfigs), configurations differing only in sparsity share the
-    bucket, each with its exact triplet budget.
+    bucket, each with its exact triplet budget.  ``use_kernel`` is the
+    JAX package's ``use_pallas``: ``None`` the shape's default trainer,
+    ``True`` the fused-epoch kernel trainer (raises where the kernel does
+    not fit), ``False`` the eager trainer
+    (:func:`~mfcd_tpu_torch.sweep.engine.resolve_use_kernel`).
 
     The keys and per-run values are made here, in the caller; the runs and
     the copy of their outputs to the host are the dispatch, which runs on
@@ -230,6 +237,7 @@ def run_bucket_async(
         idx = (idx + idx[-1:] * pad)[block]
         rows = (rows + rows[-1:] * pad)[block]
         shs = (shs + shs[-1:] * pad)[block]
+    use_kernel = resolve_use_kernel(cfg, device, use_kernel)
     idx = torch.as_tensor(np.asarray(idx, np.int64), device=device)
     cfg_keys = rng.config_key(prng.key(seed, device=device)[None], idx)
     column = lambda key: np.asarray([r[key] for r in rows], np.float32)
@@ -242,7 +250,7 @@ def run_bucket_async(
             out = _run_bucket_device(
                 dataclasses.replace(cfg, s=0.0, lr=0.0, weight_decay=0.0),
                 cfg_keys, column("s"), column("lr"), column("weight_decay"),
-                use_kernel=default_use_kernel(cfg, device), caps=caps,
+                use_kernel=use_kernel, caps=caps,
                 budgets=np.asarray([sh.num_triplets for sh in shs], np.int32),
                 extra_budgets=np.asarray(
                     [sh.extra_test_triplets for sh in shs], np.int32))
@@ -273,11 +281,13 @@ def run_bucket(
     bucket_configs: Optional[Sequence[RunConfig]] = None,
     device=None,
     mesh: Optional[Mesh] = None,
+    use_kernel: Optional[bool] = None,
 ) -> List[Dict[str, Any]]:
     """Synchronous :func:`run_bucket_async`: dispatch, collect, export."""
     return run_bucket_async(cfg, hyper_rows, config_indices, seed=seed,
                             caps=caps, bucket_configs=bucket_configs,
-                            device=device, mesh=mesh).collect()
+                            device=device, mesh=mesh,
+                            use_kernel=use_kernel).collect()
 
 
 def memory_budget_bytes(device) -> float:
@@ -356,17 +366,20 @@ def run_bytes(cfg: RunConfig, t_cap: Optional[int] = None) -> int:
     metric block (X, U V^T, centred copies, sort indices and ranks);
     the generator's own working set (:func:`generation_bytes`); the
     training split, its packed stream and the epoch shuffle's int64
-    temporaries per padded row; the validation and test splits; and the
-    sample stage's working set (:func:`sampler_bytes`)."""
+    temporaries per padded row; under soft labels, the label stage's K
+    votes per training triplet (drawn, then averaged into one row); the
+    validation and test splits; and the sample stage's working set
+    (:func:`sampler_bytes`)."""
     sh = cfg.shapes()
     t = sh.num_triplets if t_cap is None else t_cap
     train_rows = int(TRAIN_RATIO * t) * (1 if cfg.soft_label else cfg.K)
+    votes = int(TRAIN_RATIO * t) * cfg.K if cfg.soft_label else 0
     eval_raw = ((t - int(TRAIN_RATIO * t)) * cfg.K
                 + sh.extra_test_triplets * cfg.K)
     return (cfg.n * cfg.m * 4 * _NM_PLANES + generation_bytes(cfg)
             + _next_pow2(max(train_rows, 1)) * _TRAIN_ROW_BYTES
             + _next_pow2(max(eval_raw, 1)) * _EVAL_ROW_BYTES
-            + sampler_bytes(cfg, t))
+            + votes * _VOTE_BYTES + sampler_bytes(cfg, t))
 
 
 _logged_max_bucket: Optional[tuple] = None

@@ -90,6 +90,22 @@ def default_use_kernel(cfg: RunConfig, device) -> bool:
     return use
 
 
+def resolve_use_kernel(cfg: RunConfig, device,
+                       use_kernel: Optional[bool]) -> bool:
+    """``use_kernel`` as the entry points take it: ``None`` means
+    :func:`default_use_kernel`; ``True`` at a shape the kernel does not fit
+    raises ``ValueError``, and on the CPU runs the kernel trainer with the
+    plain epoch; ``False`` means the eager trainer."""
+    if use_kernel is None:
+        return default_use_kernel(cfg, device)
+    if use_kernel and not epoch_kernel_supported(cfg.n, cfg.m, cfg.d,
+                                                 cfg.batch_size):
+        raise ValueError(
+            f"use_kernel=True, but the fused-epoch kernel does not fit "
+            f"n={cfg.n}, m={cfg.m}, d={cfg.d}, batch_size={cfg.batch_size}")
+    return bool(use_kernel)
+
+
 def _run_bucket_device(cfg: RunConfig, cfg_keys: torch.Tensor, s, lr,
                        weight_decay, use_kernel: bool = False, caps=None,
                        budgets=None, extra_budgets=None) -> Dict:
@@ -171,17 +187,10 @@ def run_config(cfg: RunConfig, seed: int = DEFAULT_SEED,
 
     ``pad_compiles=True`` rounds capacities up to the power-of-two buckets
     the JAX package compiles for (``compile_caps``), with the exact triplet
-    budget kept, so results match it.  ``use_kernel`` defaults to
-    ``default_use_kernel``; ``True`` at a shape the kernel does not fit
-    raises, and on the CPU runs the kernel trainer with the plain epoch."""
+    budget kept, so results match it.  ``use_kernel``: see
+    :func:`resolve_use_kernel`."""
     device = resolve_device(device)
-    supported = epoch_kernel_supported(cfg.n, cfg.m, cfg.d, cfg.batch_size)
-    if use_kernel is None:
-        use_kernel = default_use_kernel(cfg, device)
-    elif use_kernel and not supported:
-        raise ValueError(
-            f"use_kernel=True, but the fused-epoch kernel does not fit "
-            f"n={cfg.n}, m={cfg.m}, d={cfg.d}, batch_size={cfg.batch_size}")
+    use_kernel = resolve_use_kernel(cfg, device, use_kernel)
     sh = cfg.shapes()
     caps = compile_caps(cfg) if pad_compiles else None
     cfg_key = rng.config_key(prng.key(seed, device=device), config_index)

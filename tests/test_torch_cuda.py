@@ -46,7 +46,8 @@ def _card() -> torch.device:
     return torch.device("cuda")
 
 
-def _inputs(seed, n, m, d, bs, nb, counts, lrs, mode, dev, rows=None):
+def _inputs(seed, n, m, d, bs, nb, counts, lrs, mode, dev, rows=None,
+            soft_k=None):
     g = np.random.default_rng(seed)
     r = len(counts)
     state = [g.standard_normal((r, d, n)), g.standard_normal((r, d, m))]
@@ -59,12 +60,14 @@ def _inputs(seed, n, m, d, bs, nb, counts, lrs, mode, dev, rows=None):
     if rows is not None:  # (u, i, j) drawn from rows(g, shape)
         u, i, j = (np.asarray(a, np.int32) for a in rows(g, shape))
     z = (g.random(shape) < 0.5).astype(np.float32)
+    if soft_k:  # soft labels: fractions k / K
+        z = (g.integers(0, soft_k + 1, shape) / soft_k).astype(np.float32)
     _, bn, bm, bz = KT._pack_spec(n, m, 1)
     uij = u | (i << bn) | (j << (bn + bm))
     stream, pack = {
         "full": ((uij | (z.astype(np.int32) << (bn + 2 * bm)),),
                  ("full", bn, bm, bz, 1)),
-        "uij": ((uij, z), ("uij", bn, bm, 0, 1)),
+        "uij": ((uij, z), ("uij", bn, bm, 0, soft_k or 1)),
         "none": ((u, i, j, z), ("none", 0, 0, 0, 1)),
     }[mode]
     t = lambda a, dt=None: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
@@ -112,13 +115,52 @@ def _large_r(dev) -> int:
         cfg, t_cap=compile_caps(cfg)[0], device=dev)
 
 
+# (mode, soft K, n, m, d, bs, padded batches, counts, lrs): the small shape
+# in each pack; soft labels, z = k / K, through "uij" (the pack soft labels
+# take at K >= 2); hard K = 10's stream at the canonical width (800,000
+# rows: 12,500 of 16,384 padded batches executed, the last one partial).
+K1_CASES = {
+    "full": ("full", None, N, M, D, BS, B, [70, 100], [1e-2, 3e-2]),
+    "uij": ("uij", None, N, M, D, BS, B, [70, 100], [1e-2, 3e-2]),
+    "none": ("none", None, N, M, D, BS, B, [70, 100], [1e-2, 3e-2]),
+    "uij-soft4": ("uij", 4, N, M, D, BS, B, [70, 100], [1e-2, 3e-2]),
+    "uij-soft50": ("uij", 50, N, M, D, BS, B, [70, 100], [1e-2, 3e-2]),
+    "full-k10": ("full", None, 1000, 1000, 2, 64, 16_384,
+                 [800_000, 799_983], [1e-3, 1e-2]),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["full", "uij", "none"])
-def test_kernel_matches_plain_version(mode):
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_kernel_matches_plain_version(case):
     dev = _card()
-    state, args, pack = _inputs(3, N, M, D, BS, B, [70, 100], [1e-2, 3e-2],
-                                mode, dev)
+    mode, soft_k, n, m, d, bs, nb, counts, lrs = K1_CASES[case]
+    state, args, pack = _inputs(3, n, m, d, bs, nb, counts, lrs, mode, dev,
+                                soft_k=soft_k)
     _compare(state, args, pack, dev)
+
+
+@pytest.mark.cuda
+def test_soft_label_peak_is_under_run_bytes():
+    """Soft labels draw K votes per training triplet and average them: at
+    K = 50 and the canonical width the hash words of those votes are a
+    run's largest allocation (about 50 bytes a vote), which
+    ``batched.run_bytes`` must count for the chunk size to hold."""
+    import mfcd_tpu_torch
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.sweep import batched
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    dev = _card()
+    grid = dict(n=1000, m=1000, d=2, p=0.2, s=5.0, K=50, soft_label=True,
+                num_epochs=1, reps=2)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mfcd_tpu_torch.parameter_scan_fast(device=dev, **grid)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / grid["reps"]
+    cfg = RunConfig(**grid)
+    assert peak <= batched.run_bytes(cfg, compile_caps(cfg)[0])
 
 
 @pytest.mark.cuda

@@ -31,7 +31,7 @@ N, M, D, BS, B = 20, 25, 3, 32, 4
 ROWS, VROWS, EPOCHS = 100, 40, 2
 
 
-def epoch_inputs(seed, counts, lrs, bs=BS, nb=B):
+def epoch_inputs(seed, counts, lrs, bs=BS, nb=B, soft_k=None):
     g = np.random.default_rng(seed)
     r = len(counts)
     state = [g.standard_normal((r, D, N)), g.standard_normal((r, D, M))]
@@ -43,6 +43,8 @@ def epoch_inputs(seed, counts, lrs, bs=BS, nb=B):
     i = g.integers(0, M, shape).astype(np.int32)
     j = ((i + g.integers(1, M, shape)) % M).astype(np.int32)
     z = (g.random(shape) < 0.5).astype(np.float32)
+    if soft_k:  # soft labels: fractions k / K
+        z = (g.integers(0, soft_k + 1, shape) / soft_k).astype(np.float32)
     scalars = dict(lr=np.asarray(lrs, np.float32),
                    wd=np.full(r, 1e-3, np.float32),
                    step0=np.arange(r, dtype=np.float32) * 3,
@@ -50,14 +52,14 @@ def epoch_inputs(seed, counts, lrs, bs=BS, nb=B):
     return state, (u, i, j, z), scalars
 
 
-def packed(mode, u, i, j, z):
+def packed(mode, u, i, j, z, denom=1):
     bn = bm = 5
     uij = u | (i << bn) | (j << (bn + bm))
     if mode == "full":
         return (uij | (z.astype(np.int32) << (bn + 2 * bm)),), (
             "full", bn, bm, 1, 1)
     if mode == "uij":
-        return (uij, z), ("uij", bn, bm, 0, 1)
+        return (uij, z), ("uij", bn, bm, 0, denom)
     return (u, i, j, z), ("none", 0, 0, 0, 1)
 
 
@@ -79,10 +81,17 @@ def _check_against_pallas(state, stream, pack, sc):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["full", "uij", "none"])
-def test_epoch_reference_matches_pallas(mode):
-    state, rows, sc = epoch_inputs(0, [70, 100], [1e-2, 3e-2])
-    stream, pack = packed(mode, *rows)
+@pytest.mark.parametrize("mode,soft_k", [
+    pytest.param("full", None, id="full"),
+    pytest.param("uij", None, id="uij"),
+    pytest.param("none", None, id="none"),
+    # Soft labels at K = 4 and 50 take the "uij" pack on the real path
+    # (the numerator does not fit the word): z is a float32 fraction k / K.
+    pytest.param("uij", 4, id="uij-soft4"),
+    pytest.param("uij", 50, id="uij-soft50")])
+def test_epoch_reference_matches_pallas(mode, soft_k):
+    state, rows, sc = epoch_inputs(0, [70, 100], [1e-2, 3e-2], soft_k=soft_k)
+    stream, pack = packed(mode, *rows, denom=soft_k or 1)
     _check_against_pallas(state, stream, pack, sc)
 
 
