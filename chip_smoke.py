@@ -34,7 +34,8 @@ Phases, each of which raises on failure (nothing is caught and continued):
    bounds; and the split again with every kernel forced to C = 1;
 4. main path: ``parameter_scan`` at the canonical configuration
    (n = m = 1000, d = 2, p = 0.2, s = 5, 30 epochs, reps = 4) on the card,
-   with the kernel launch count read around it;
+   with the launch counts read around it: 30 of K1 and 30 of the epoch
+   shuffle S2, and S1 and T1 launched;
 4b. fast path: ``parameter_scan_fast`` on the bench bucket (s = 5 and 6:
    one chunk of 8 runs), launches read around it, against the sequential
    ``parameter_scan`` on the same grid;
@@ -118,6 +119,8 @@ Phases, each of which raises on failure (nothing is caught and continued):
    smallest C (a second wave): against its plain version, bit-equal at
    every C from the smallest that the card schedules, a forced C below it
    (and packed) raising ``ValueError``; ms an epoch, us a step, the bound;
+   and at d = 8, n = m = 7,168, R = 2, where only C = 16 fits: against its
+   plain version, two launches bit-equal, C = 8 refused;
    (b) ``mfcd_tpu_torch.scripts.scale_demo`` at n = m = 10,000, p = 0.02,
    30 epochs (two ``run_config`` calls): K1 the trainer, 30 launches a
    call at the chosen C, every key finite, accuracy above 0.6 and within
@@ -152,7 +155,19 @@ Phases, each of which raises on failure (nothing is caught and continued):
    epochs, reps = 2): one chunk a K, 30 K1 launches each, every key
    finite, accuracy above 0.6, peak memory per run under ``run_bytes``,
    s/run by K; then soft K = 10 at 2 epochs
-   on the card against the CPU, within [5]'s bound.
+   on the card against the CPU, within [5]'s bound;
+14. the epoch shuffle and threefry: (a) at each shape of
+   ``SHUFFLE_CASES`` (the canonical run, the bench bucket, the bench's
+   sweep chunk, hard K = 10 and 50, scale_demo's n = m = 10,000), the
+   fused epoch shuffle S2 over a fresh and a cheap epoch, the keyed PRP S1
+   in its three walk modes and threefry T1's two entries, each bit-equal
+   to its plain version on the card, with its device ms (CUDA events over
+   calls queued behind a spin kernel, so the host's issue is not in them)
+   and its host issue ms beside the plain version's and the bound; (b) the
+   canonical ``run_config`` with ``train_runs_kernel`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
+   trainer's epoch loop), 30 S2 and 30 K1 launches a call, s/run, and a
+   call with its stage spans synchronised.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -252,6 +267,7 @@ MESH_TIMEOUT_S = 600
 # scale demo, the trainer check at the new shape, weak scaling's ranks and
 # the forward probe's bound (the card's and the CPU's sigmoid round apart).
 SCALE_ROWS = (5000, 10_000)
+D8_ROWS = 7168   # d = 8, bs = 64: JAX admits it, K1 fits only at C = 16
 SCALE_BATCHES = 64
 SCALE_DEMO = dict(n=10_000, p=0.02, epochs=30)
 TRAINER_CHECK = dict(n=5000, m=5000, d=2, p=0.02, s=5.0, lr=1e-3,
@@ -278,6 +294,30 @@ K_CARD_CPU = dict(n=1000, m=1000, d=2, p=0.2, s=[5.0], K=10,
                   soft_label=True, weight_decay=5e-6, lr=1e-3, num_epochs=2,
                   reps=1)
 ACC_MIN = 0.6
+# [14] The epoch shuffle and threefry on the card: S1, S2 and T1 against
+# their plain versions (integer maps: bit-equal) at the main path's shapes,
+# (label, R, S, count, k_bits, pack arrays): the canonical run, the bench
+# bucket, the bench's sweep chunk, hard K = 10 and 50, and scale_demo's
+# n = m = 10,000 (pack "none").  S2 at bs = 64's tile width, over one fresh
+# and one cheap epoch; its ms an epoch is the period's mean (1 fresh, 3
+# cheap).
+SHUFFLE_CASES = (("canonical", 4, 131_072, 80_000, 17, 1),
+                 ("bench bucket", 8, 131_072, 80_000, 17, 1),
+                 ("sweep", MID_R, 131_072, 80_000, 17, 1),
+                 ("hard K=10", 2, 1 << 20, 800_000, 20, 1),
+                 ("hard K=50", 2, 1 << 22, 4_000_000, 22, 1),
+                 ("scale", 1, 800_000, 800_000, 20, 4))
+SHUFFLE_TILE, SHUFFLE_PERIOD = 64, 4
+# Integer operations a step of the keyed walk (3 rounds of multiply, mask,
+# shift, xor, add, mask) and its test, and a threefry2x32 hash (20 rounds
+# of add, rotate, xor, 5 key injections), for the operations bound, over
+# the H100's float32 non-tensor rate: its integer rate is no higher, so the
+# bound stays a lower bound.
+MIX_OPS, HASH_OPS, SLOT_OPS = 20, 80, 10
+# Cycles a second the spin kernel of ``queue_ms`` counts at most (the
+# H100's top SM clock, 1.98 GHz, rounded up): its spin lasts at least
+# cycles / SPIN_HZ seconds.
+SPIN_HZ = 2.0e9
 
 
 def log(msg: str) -> None:
@@ -2206,6 +2246,48 @@ def scale_kernel_phase(dev, smi):
                 f"us/step), plain {plain_ms:.2f} ms, bound {bound:.6f} ms "
                 f"({by}); bit-equal at C={shapes}, C={kernels.PACKED} "
                 f"(packed) and C<{floor} refused; {smi}")
+    # d = 8 past C = 8's reach: the gate's floor is C = 16 (JAX's kernel
+    # admits the shape).  Against the plain version, two launches
+    # bit-equal, C = 8 refused.
+    n, d8, r = D8_ROWS, 8, 2
+    floor = kernels.min_cluster(n, n, d8, bs)
+    if floor != 16:
+        fail(f"[12a] d=8, n=m={n}: smallest C {floor}, expected 16")
+    label = f"d=8 n=m={n} R={r}"
+    inp = make_epoch_inputs(40, r, n, n, d8, bs, nb, [nb * bs, nb * bs - 37],
+                            [1e-3, 3e-3], "none", dev)
+    args = (inp["stream"], inp["lr"], inp["wd"], inp["step0"], inp["count"])
+    err, plain_ms, got = compare_epoch(inp, f"[12a] K1 {label}")
+    worst = max(worst, err)
+    c = kernels.cluster_size(r, n, n, d8, bs, dev)
+    again = kernels._train_epoch(clone_state(inp["state"]), *args,
+                                 pack=inp["pack"], cluster=16)
+    torch.cuda.synchronize()
+    if c != 16 or not bit_equal(got, again):
+        fail(f"[12a] {label}: chose C={c}; two launches at C = 16 differ: "
+             f"{not bit_equal(got, again)}")
+    try:
+        kernels._train_epoch(clone_state(inp["state"]), *args,
+                             pack=inp["pack"], cluster=8)
+    except ValueError as e:
+        if "smallest C that fits" not in str(e):
+            fail(f"[12a] {label}: C=8: {e}")
+    else:
+        fail(f"[12a] {label}: a forced C=8 below 16 ran")
+    ms = median_ms(lambda st: kernels.train_epoch(
+        st, *args, pack=inp["pack"]), inp["state"], warmup=1, reps=5)
+    steps = executed_steps(inp, bs) / r
+    bound, by = epoch_bound_ms(inp, n, n, d8, bs)
+    entries.append(dict(label=label, n=n, d=d8, r=r, bs=bs, pack="none",
+                        smallest_cluster=floor, cluster=c, ms=ms,
+                        us_per_step=ms * 1e3 / steps, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, max_abs_err=err,
+                        bit_equal_at=[16]))
+    log(f"[12a] K1 {label}: C={c} (smallest {floor}), {ms:.4f} ms/epoch "
+        f"({ms * 1e3 / steps:.4f} us/step), plain {plain_ms:.2f} ms, bound "
+        f"{bound:.6f} ms ({by}); max|diff| {err:.3g} against the plain "
+        f"version (its index_add_ adds with atomics on the card), two "
+        f"launches bit-equal, C=8 refused; {smi}")
     return entries, worst
 
 
@@ -2250,17 +2332,32 @@ def _synced_spans(call):
 
 def scale_demo_phase(smi):
     """[12b] ``scale_demo`` at n = m = 10,000 (K1 the trainer, 30 launches
-    a call, every key finite, learning), a third call for the span split;
-    then K1 against the autograd trainer at n = m = 5,000.
-    Returns the demo's line."""
+    a call, every key finite, learning; its first call with synchronised
+    stage spans, so a slow first call shows where it went), a third call
+    for the span split; then K1 against the autograd trainer at n = m =
+    5,000.  Returns the demo's line."""
     from mfcd_tpu_torch.core.config import RunConfig
     from mfcd_tpu_torch.core.results import validate_schema
     from mfcd_tpu_torch.ops import kernels
     from mfcd_tpu_torch.scripts import scale_demo
+    from mfcd_tpu_torch.sweep import engine
     from mfcd_tpu_torch.sweep.engine import run_config
 
+    first = {}
+
+    def spanned_once(*args, **kwargs):
+        engine.run_config = run_config
+        out = []
+        first["wall"], first["spans"] = _synced_spans(
+            lambda: out.append(run_config(*args, **kwargs)))
+        return out[0]
+
     kernels.EPOCH_LAUNCHES = 0
-    line, res = scale_demo.run(**SCALE_DEMO, device="cuda")
+    engine.run_config = spanned_once
+    try:
+        line, res = scale_demo.run(**SCALE_DEMO, device="cuda")
+    finally:
+        engine.run_config = run_config
     launches = kernels.EPOCH_LAUNCHES
     epochs, n = SCALE_DEMO["epochs"], SCALE_DEMO["n"]
     if line["trainer"] != "fused-epoch kernel":
@@ -2283,8 +2380,14 @@ def scale_demo_phase(smi):
     keep = ("mfcd.sample", "mfcd.label", "mfcd.train", "mfcd.train.mix",
             "mfcd.train.epoch", "mfcd.train.val", "mfcd.metrics",
             "mfcd.export")
+    outside = first["wall"] - sum(
+        first["spans"].get(k, 0.0) for k in keep if k.count(".") == 1)
     log(f"[12b] scale_demo n=m={n} p={SCALE_DEMO['p']}: first call "
-        f"{line['first_call_s']:.3f} s, steady {line['value']:.3f} s; K1 at "
+        f"{line['first_call_s']:.3f} s (spans synchronised: "
+        + ", ".join(f"{k} {1e3 * first['spans'].get(k, 0.0):.1f}"
+                    for k in keep)
+        + f", outside them {1e3 * outside:.1f} ms), steady "
+        f"{line['value']:.3f} s; K1 at "
         f"C={line['cluster']} (smallest {line['smallest_cluster']}), "
         f"launches {line['k1_launches']}; peak "
         f"{line['peak_bytes'] / 1e9:.3f} GB; accuracy {acc:.4f}, gt {gt:.4f}"
@@ -2584,6 +2687,276 @@ def k_axis_phase(smi):
     return dict(launches=launches, s_per_run=s_per_run, wall=wall)
 
 
+def queue_ms(fn, reps: int = 20, rounds: int = 5):
+    """(device ms, host ms) of one call of ``fn``: medians over ``rounds``
+    windows of ``reps`` back-to-back calls, after one warm-up call.  Each
+    window is queued behind a spin kernel (``torch.cuda._sleep``) that
+    outlasts the host's issue of all ``reps`` calls, so the card runs
+    them back to back and the CUDA-event window holds their device time
+    alone; the host's clock over the issue gives the host ms.  Fails if
+    the card caught up with the host (a host sync in ``fn``) even behind
+    a spin 64 times the host's issue time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    cycles = int(4 * SPIN_HZ * max(time.perf_counter() - t0, 1e-3))
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(rounds):
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            issued = time.perf_counter() - t0
+            ahead = not start.query()   # the card still spinning
+            stop.record()
+            stop.synchronize()
+            if ahead:
+                break
+            cycles *= 4
+        else:
+            fail("queue_ms: the card caught up with the host's issue")
+        dev.append(start.elapsed_time(stop) / reps)
+        host.append(1e3 * issued / reps)
+    return float(np.median(dev)), float(np.median(host))
+
+
+def walk_steps(key, slots, count, k_bits, mode="capped") -> torch.Tensor:
+    """The mixing steps each keyed walk of ``slots`` takes under ``key``
+    and ``count`` (the first mix included), as the plain walk of ``mode``
+    ("capped", "exact" or "inverse") applies them; int64, one per lane."""
+    from mfcd_tpu_torch.core.prng import M32
+    from mfcd_tpu_torch.ops import shuffle
+
+    muls, adds = shuffle._derive_constants(key)
+    step = (shuffle._unmix if mode == "inverse" else shuffle._mix)
+    cnt = torch.as_tensor(count, dtype=torch.int64,
+                          device=slots.device).unsqueeze(-1) & M32
+    x = slots.to(torch.int64) & M32
+    if mode != "capped":
+        cnt = torch.clamp(cnt, min=1)
+        x = torch.where(x < cnt, x, torch.zeros_like(x))
+    x = step(x, muls, adds, k_bits)
+    steps = torch.ones_like(x)
+    it = 0
+    while (mode != "capped" or it < 48) and bool((x >= cnt).any()):
+        out = x >= cnt
+        x = torch.where(out, step(x, muls, adds, k_bits), x)
+        steps += out.to(torch.int64)
+        it += 1
+    return steps
+
+
+def stream_ops(keys, epoch, counts, s_len, k_bits) -> int:
+    """Integer operations one S2 epoch needs on these inputs: the walks of
+    a fresh epoch over every slot, or of a cheap one over the full tiles
+    (each tile's walk taken by its tile_w slots), plus the per-slot address
+    arithmetic, plus the keys' hashes (11 a run)."""
+    from mfcd_tpu_torch.core import prng
+
+    r = keys.shape[0]
+    k_prp, _, k_tile = prng.split_reference(
+        prng.fold_in_reference(keys, epoch), 3).unbind(-2)
+    slots = torch.arange(s_len, device=keys.device)
+    if epoch % SHUFFLE_PERIOD == 0:
+        steps = int(walk_steps(k_prp, slots, counts, k_bits).sum())
+    else:
+        t_bits = max(k_bits - SHUFFLE_TILE.bit_length() + 1, 1)
+        full = counts.to(torch.int64).unsqueeze(-1) // SHUFFLE_TILE
+        tiles = torch.arange(s_len // SHUFFLE_TILE, device=keys.device)
+        walked = walk_steps(k_tile, tiles, torch.clamp(full[:, 0], min=1),
+                            t_bits)
+        steps = SHUFFLE_TILE * int((walked * (tiles < full)).sum())
+    return MIX_OPS * steps + SLOT_OPS * r * s_len + HASH_OPS * 11 * r
+
+
+def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi):
+    """[14a] One shape: S2 (fresh and cheap epochs), S1 in its three modes
+    and T1's two entries against their plain versions, bit for bit; each
+    one's ms beside the plain version's and the bound.  Returns the
+    entry."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.ops import shuffle
+
+    g = torch.Generator(device=dev).manual_seed(s_len + r)
+    keys = prng.split(prng.key(r), r).to(dev)
+    counts = torch.clamp(torch.tensor([count - 13 * i for i in range(r)],
+                                      dtype=torch.int32, device=dev), min=1)
+    words = tuple(torch.randint(-2**31, 2**31 - 1, (r, s_len),
+                                dtype=torch.int32, device=dev, generator=g)
+                  for _ in range(arrays))
+    same = lambda a, b: a.shape == b.shape and bool(
+        torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    kw = dict(period=SHUFFLE_PERIOD, tile_w=SHUFFLE_TILE)
+    entry = dict(label=label, r=r, s=s_len, count=count, k_bits=k_bits,
+                 arrays=arrays)
+    # S2: epoch 0 is a fresh PRP gather, epoch 1 a cheap one.
+    s2 = {}
+    for epoch, kind in ((0, "fresh"), (1, "cheap")):
+        call = lambda: shuffle.mix_stream(words, keys, epoch, counts,
+                                          k_bits, **kw)
+        plain = lambda: shuffle.mix_stream_reference(words, keys, epoch,
+                                                     counts, k_bits, **kw)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if not all(same(a, b) for a, b in zip(got, want)):
+            fail(f"[14a] {label}: S2 {kind} epoch differs from its plain "
+                 f"version")
+        nbytes = 8 * r * s_len * arrays + 20 * r
+        bound, by = bound_ms(nbytes, stream_ops(keys, epoch, counts, s_len,
+                                                k_bits))
+        dev_ms, host_ms = queue_ms(call)
+        s2[kind] = dict(ms=dev_ms, host_ms=host_ms,
+                        plain_ms=time_ms(plain, 1, 3), bound_ms=bound,
+                        bound_by=by)
+    mean = lambda k: (s2["fresh"][k] + 3 * s2["cheap"][k]) / 4
+    entry["mix_stream"] = dict(
+        s2, ms=mean("ms"), host_ms=mean("host_ms"),
+        plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+        bound_by=s2["cheap"]["bound_by"])
+    # S1 over one shared row of the stream's slots (int64, read once), each
+    # mode: R rows of int32 out, a key and a count a row.
+    slots = torch.arange(s_len, device=dev)
+    s1 = {}
+    for mode, name in (("capped", "epoch_permutation"),
+                       ("exact", "exact_prefix_permutation"),
+                       ("inverse", "exact_prefix_permutation_inverse")):
+        call = lambda: getattr(shuffle, name)(keys, slots, counts, k_bits)
+        plain = lambda: getattr(shuffle, name + "_reference")(
+            keys, slots, counts, k_bits)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if not same(got, want):
+            fail(f"[14a] {label}: S1 {mode} differs from its plain version")
+        steps = int(walk_steps(keys, slots, counts, k_bits, mode).sum())
+        bound, by = bound_ms(8 * s_len + 4 * r * s_len + 20 * r,
+                             MIX_OPS * steps + SLOT_OPS * r * s_len)
+        dev_ms, host_ms = queue_ms(call)
+        s1[mode] = dict(ms=dev_ms, host_ms=host_ms,
+                        plain_ms=time_ms(plain, 1, 3), bound_ms=bound,
+                        bound_by=by)
+    entry["shuffle_prp"] = s1
+    # T1: bits over [R, S] (the counter entry) and fold_in over R keys (the
+    # hash entry), its datum a tensor on the card.
+    datum = torch.full((), 7, dtype=torch.int64, device=dev)
+    t1 = {}
+    for name, call, plain, n_out in (
+            ("bits", lambda: prng.bits(keys, (s_len,)),
+             lambda: prng.bits_reference(keys, (s_len,)), r * s_len),
+            ("fold_in", lambda: prng.fold_in(keys, datum),
+             lambda: prng.fold_in_reference(keys, datum), r)):
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if not same(got, want):
+            fail(f"[14a] {label}: T1 {name} differs from its plain version")
+        words_out = n_out * (2 if name == "fold_in" else 1)
+        bound, by = bound_ms(8 * words_out + 16 * r, HASH_OPS * n_out)
+        dev_ms, host_ms = queue_ms(call)
+        t1[name] = dict(ms=dev_ms, host_ms=host_ms,
+                        plain_ms=time_ms(plain, 1, 3), bound_ms=bound,
+                        bound_by=by)
+    entry["threefry2x32"] = t1
+    ms = entry["mix_stream"]
+    log(f"[14a] {label} (R={r}, S={s_len}, count {count}, k={k_bits}, "
+        f"{arrays} array{'s' if arrays > 1 else ''}): S2, S1 (3 modes), T1 "
+        f"(bits, fold_in) bit-equal to their plain versions; device ms a "
+        f"call (host issue ms): S2 {s2['fresh']['ms']:.4f} "
+        f"({s2['fresh']['host_ms']:.4f}) fresh / {s2['cheap']['ms']:.4f} "
+        f"({s2['cheap']['host_ms']:.4f}) cheap (plain "
+        f"{s2['fresh']['plain_ms']:.2f} / {s2['cheap']['plain_ms']:.2f}, "
+        f"bound {s2['fresh']['bound_ms']:.6f} / "
+        f"{s2['cheap']['bound_ms']:.6f}, {s2['cheap']['bound_by']}), period "
+        f"mean {ms['ms']:.4f}; S1 "
+        + ", ".join(f"{k} {v['ms']:.4f} ({v['host_ms']:.4f}; plain "
+                    f"{v['plain_ms']:.2f}, bound {v['bound_ms']:.6f} "
+                    f"{v['bound_by']})" for k, v in s1.items())
+        + "; T1 " + ", ".join(f"{k} {v['ms']:.4f} ({v['host_ms']:.4f}; plain "
+                              f"{v['plain_ms']:.2f}, bound "
+                              f"{v['bound_ms']:.6f} {v['bound_by']})"
+                              for k, v in t1.items()) + f" ms; {smi}")
+    return entry
+
+
+def strict_loop_phase(smi):
+    """[14b] The canonical configuration through ``run_config`` with
+    ``train_runs_kernel`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    a host sync anywhere in the trainer (the epoch loop included) raises.
+    Two calls, the second timed (s/run); 30 S2 and 30 K1 launches a call.
+    Then one call with the stage spans synchronised (``_synced_spans``).
+    Returns the numbers."""
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.ops import kernels, shuffle
+    from mfcd_tpu_torch.sweep import engine
+
+    cfg = RunConfig(n=CANON["n"], m=CANON["m"], d=CANON["d"],
+                    p=CANON["p"], s=CANON["s"][0], lr=CANON["lr"],
+                    weight_decay=CANON["weight_decay"],
+                    num_epochs=CANON["num_epochs"], reps=CANON["reps"])
+    inner = engine.train_runs_kernel
+
+    def strict(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine.train_runs_kernel = strict
+    try:
+        walls = []
+        for _ in range(2):
+            s2, k1 = shuffle.SHUFFLE_LAUNCHES, kernels.EPOCH_LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.run_config(cfg, seed=0, device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            s2 = shuffle.SHUFFLE_LAUNCHES - s2
+            k1 = kernels.EPOCH_LAUNCHES - k1
+            if s2 != cfg.num_epochs or k1 != cfg.num_epochs:
+                fail(f"[14b] {s2} S2 and {k1} K1 launches, expected "
+                     f"{cfg.num_epochs} each")
+    finally:
+        engine.train_runs_kernel = inner
+    if not all_finite(res) or not float(np.mean(res["accuracy"])) > ACC_MIN:
+        fail(f"[14b] accuracy {res['accuracy']}")
+    wall, spans = _synced_spans(lambda: engine.run_config(
+        cfg, seed=0, device="cuda"))
+    keep = ("mfcd.sample", "mfcd.label", "mfcd.train", "mfcd.train.mix",
+            "mfcd.train.epoch", "mfcd.train.val", "mfcd.metrics",
+            "mfcd.export")
+    out = dict(s_per_run=walls[1] / cfg.reps, walls=walls,
+               synced_wall=wall,
+               spans_ms={k: 1e3 * spans.get(k, 0.0) for k in keep})
+    log(f"[14b] canonical run_config, train_runs_kernel under sync debug "
+        f"mode 'error': no host sync; {cfg.num_epochs} S2 and "
+        f"{cfg.num_epochs} K1 launches a call; walls "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s, "
+        f"{out['s_per_run']:.4f} s/run; accuracy "
+        f"{[round(float(a), 4) for a in res['accuracy']]}; a call with "
+        f"synchronised spans {wall:.4f} s: "
+        + ", ".join(f"{k} {v:.1f} ms ({v / 1e3 / wall:.1%})"
+                    for k, v in out["spans_ms"].items()) + f"; {smi}")
+    return out
+
+
+def shuffle_phase(dev, smi):
+    """[14] S1, S2 and T1 at every shape of ``SHUFFLE_CASES``, then the
+    canonical epoch loop with no host sync.  Returns (cases, loop)."""
+    t0 = time.perf_counter()
+    cases = [shuffle_case(dev, *case, smi) for case in SHUFFLE_CASES]
+    loop = strict_loop_phase(smi)
+    log(f"[14] epoch shuffle and threefry: {time.perf_counter() - t0:.1f} s")
+    return cases, loop
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2591,7 +2964,8 @@ def main() -> int:
     import mfcd_tpu_torch
     from mfcd_tpu_torch.backend import card_line
     from mfcd_tpu_torch.core.results import validate_schema
-    from mfcd_tpu_torch.ops import _build, kernels
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.ops import _build, kernels, shuffle
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
@@ -2630,17 +3004,28 @@ def main() -> int:
         save_path = os.path.join(tmp, "scan.pkl")
         torch.cuda.synchronize()
         kernels.EPOCH_LAUNCHES = 0
+        shuffle.SHUFFLE_LAUNCHES = shuffle.PRP_LAUNCHES = 0
+        prng.THREEFRY_LAUNCHES = 0
         t0 = time.perf_counter()
         out = mfcd_tpu_torch.parameter_scan(save_path=save_path,
                                             save_every=1, **CANON)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.EPOCH_LAUNCHES
+        main_launches = dict(s2=shuffle.SHUFFLE_LAUNCHES,
+                             s1=shuffle.PRP_LAUNCHES,
+                             t1=prng.THREEFRY_LAUNCHES)
         with open(save_path, "rb") as f:
             saved = pickle.load(f)
     if launches != CANON["num_epochs"]:
         fail(f"main path launched the epoch kernel {launches} times, "
              f"expected {CANON['num_epochs']}")
+    if main_launches["s2"] != CANON["num_epochs"]:
+        fail(f"main path launched the epoch shuffle S2 "
+             f"{main_launches['s2']} times, expected {CANON['num_epochs']}")
+    if not (main_launches["s1"] > 0 and main_launches["t1"] > 0):
+        fail(f"main path launched S1 {main_launches['s1']} and T1 "
+             f"{main_launches['t1']} times")
     if out != [] or len(saved) != 1:
         fail("pickle protocol: expected one flushed experiment")
     res = saved[0]["results"]
@@ -2654,8 +3039,9 @@ def main() -> int:
         fail(f"mean accuracy {acc:.4f} is not above 0.6")
     runs = CANON["reps"] * len(CANON["s"])
     log(f"[4] main path: parameter_scan canonical, {runs} runs in "
-        f"{wall:.3f} s ({wall / runs:.4f} s/run), {launches} kernel "
-        f"launches, mean accuracy {acc:.4f}, gt accuracy "
+        f"{wall:.3f} s ({wall / runs:.4f} s/run), {launches} K1 launches, "
+        f"{main_launches['s2']} S2, {main_launches['s1']} S1, "
+        f"{main_launches['t1']} T1, mean accuracy {acc:.4f}, gt accuracy "
         f"{float(np.mean(res['gt_accuracy'])):.4f}, final train loss "
         f"{float(np.mean([c[-1] for c in res['train_losses']])):.4f}")
 
@@ -2723,6 +3109,12 @@ def main() -> int:
     k_axis = k_axis_phase(smi)
     log(f"[13] label redundancy: {time.perf_counter() - t0:.1f} s")
 
+    # [14] The epoch shuffle (S1, S2) and threefry (T1) against their plain
+    # versions at the main path's shapes, and the canonical epoch loop with
+    # no host sync.
+    shuffle_cases, strict_loop = shuffle_phase(dev, smi)
+    canon_shuffle = shuffle_cases[0]
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "fused_train_epoch",
@@ -2752,6 +3144,49 @@ def main() -> int:
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,
         "pipeline": pipe,
+    }, {
+        "name": "shuffle_prp",
+        "route": "cuda",
+        "source": "mfcd_tpu_torch/ops/csrc/shuffle_kernel.cu",
+        "replaces": "mfcd_tpu/ops/shuffle.py:57",
+        "launches": main_launches["s1"],
+        "max_abs_err": 0,
+        "ms": canon_shuffle["shuffle_prp"]["capped"]["ms"],
+        "host_ms": canon_shuffle["shuffle_prp"]["capped"]["host_ms"],
+        "plain_ms": canon_shuffle["shuffle_prp"]["capped"]["plain_ms"],
+        "bound_ms": canon_shuffle["shuffle_prp"]["capped"]["bound_ms"],
+        "bound_by": canon_shuffle["shuffle_prp"]["capped"]["bound_by"],
+        "library_ms": None,
+        "modes": {c["label"]: c["shuffle_prp"] for c in shuffle_cases},
+    }, {
+        "name": "mix_stream",
+        "route": "cuda",
+        "source": "mfcd_tpu_torch/ops/csrc/shuffle_kernel.cu",
+        "replaces": "mfcd_tpu/ops/shuffle.py:284",
+        "launches": main_launches["s2"],
+        "max_abs_err": 0,
+        "ms": canon_shuffle["mix_stream"]["ms"],
+        "host_ms": canon_shuffle["mix_stream"]["host_ms"],
+        "plain_ms": canon_shuffle["mix_stream"]["plain_ms"],
+        "bound_ms": canon_shuffle["mix_stream"]["bound_ms"],
+        "bound_by": canon_shuffle["mix_stream"]["bound_by"],
+        "library_ms": None,
+        "cases": {c["label"]: c["mix_stream"] for c in shuffle_cases},
+        "strict_loop": strict_loop,
+    }, {
+        "name": "threefry2x32",
+        "route": "cuda",
+        "source": "mfcd_tpu_torch/ops/csrc/prng_kernel.cu",
+        "replaces": "mfcd_tpu/ops/shuffle.py:39",
+        "launches": main_launches["t1"],
+        "max_abs_err": 0,
+        "ms": canon_shuffle["threefry2x32"]["bits"]["ms"],
+        "host_ms": canon_shuffle["threefry2x32"]["bits"]["host_ms"],
+        "plain_ms": canon_shuffle["threefry2x32"]["bits"]["plain_ms"],
+        "bound_ms": canon_shuffle["threefry2x32"]["bits"]["bound_ms"],
+        "bound_by": canon_shuffle["threefry2x32"]["bits"]["bound_by"],
+        "library_ms": None,
+        "cases": {c["label"]: c["threefry2x32"] for c in shuffle_cases},
     }] + split_entries + alt_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,26 +21,42 @@ Torch has no full uint32 arithmetic, so every word lives in an int64 lane
 masked to 32 bits.  Products of two 32-bit words would overflow int64 and
 go through :func:`mul32`, which splits one factor into 16-bit halves.
 
+The hash itself (:func:`threefry2x32`, and :func:`fold_in`,
+:func:`split`, :func:`bits`, :func:`bits_at` on it) launches the kernel
+T1 (``ops/csrc/prng_kernel.cu``) for CUDA tensors, one launch a call
+(``THREEFRY_LAUNCHES`` counts them), and runs the plain version
+(:func:`threefry2x32_reference`, int64 torch operations) for CPU tensors
+only; any other device raises.  The draws built on them (``uniform``,
+``normal``, ``randint``, ...) take their words from it.
+
 Every function broadcasts over leading key dimensions: a key ``[R, 2]``
 yields ``[R, *shape]`` draws, one independent stream per run.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from mfcd_tpu_torch.ops import _build
+
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
+THREEFRY_LAUNCHES = 0   # T1 launches, counted where they are made
+_MAX_DIMS = 8           # broadcast dims prng_kernel.cu's hash entry takes
 
 
 def _u32(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & M32
+    if isinstance(x, (int, np.integer)):
+        # a fill, not a host copy: no sync on the card
+        return torch.full((), int(x) & M32, dtype=torch.int64, device=device)
     return torch.as_tensor(np.asarray(x, dtype=np.int64) & M32,
                            device=device)
 
@@ -56,8 +72,9 @@ def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
     return ((v << r) | (v >> (32 - r))) & M32
 
 
-def threefry2x32(k0, k1, x0, x1):
-    """The threefry2x32 hash (20 rounds) of counters ``(x0, x1)``."""
+def threefry2x32_reference(k0, k1, x0, x1):
+    """The threefry2x32 hash (20 rounds) of counters ``(x0, x1)``, in int64
+    torch operations: T1's plain version."""
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32
@@ -70,6 +87,93 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+def _on(who: str, device: torch.device) -> bool:
+    """True for a CUDA device, False for the CPU; raises for any other."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"{who}: unsupported device {device}")
+
+
+def _t1(entry: str):
+    args = {"mfcd_threefry_hash": [ctypes.c_void_p] * 6
+            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_void_p],
+            "mfcd_threefry_bits": [ctypes.c_void_p, ctypes.c_longlong,
+                                   ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_longlong, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_void_p]}[entry]
+    lib = _build.bind("prng_kernel.cu", entry, args)
+    return lib, getattr(lib, entry)
+
+
+def _hash_launch(words, pairs: bool) -> torch.Tensor:
+    """T1 over int64 word tensors ``(k0, k1, x0, x1)`` on one card,
+    broadcast against each other (read through their strides, nothing
+    expanded): ``[*shape]`` words ``o0 ^ o1``, or ``[*shape, 2]`` pairs."""
+    global THREEFRY_LAUNCHES
+    dev = words[0].device
+    for w in words:
+        if not isinstance(w, torch.Tensor) or w.device != dev:
+            raise ValueError(f"threefry2x32: every word tensor must lie on "
+                             f"{dev}")
+    words = torch.broadcast_tensors(*(w.to(torch.int64) for w in words))
+    shape = tuple(words[0].shape)
+    if len(shape) > _MAX_DIMS:
+        raise ValueError(f"threefry2x32: {len(shape)} dims, the kernel "
+                         f"takes at most {_MAX_DIMS}")
+    out = torch.empty(shape + ((2,) if pairs else ()), dtype=torch.int64,
+                      device=dev)
+    n = math.prod(shape)
+    if n == 0:
+        return out
+    lib, fn = _t1("mfcd_threefry_hash")
+    nd = len(shape)
+    c_shape = (ctypes.c_longlong * max(nd, 1))(*shape)
+    c_strides = (ctypes.c_longlong * max(4 * nd, 1))(
+        *(s for w in words for s in w.stride()))
+    err = fn(*(w.data_ptr() for w in words), c_shape, c_strides, nd, n,
+             out.data_ptr(), int(pairs), torch.cuda.current_stream(
+                 dev).cuda_stream)
+    _build.raise_on(lib, err, "threefry2x32 (T1 hash)")
+    THREEFRY_LAUNCHES += 1
+    return out
+
+
+def _bits_launch(k: torch.Tensor, n: int, pairs: bool) -> torch.Tensor:
+    """T1's counter entry: ``bits(k, (n,))`` words ``[..., n]``, or the
+    hashed pairs ``[..., n, 2]`` (``split``'s keys), for keys ``[..., 2]``
+    on one card."""
+    global THREEFRY_LAUNCHES
+    if k.shape[-1:] != (2,):
+        raise ValueError(f"threefry2x32: keys of shape {tuple(k.shape)}, "
+                         f"expected [..., 2]")
+    lead = tuple(k.shape[:-1])
+    kf = k.to(torch.int64).reshape(-1, 2)
+    out = torch.empty(lead + (n,) + ((2,) if pairs else ()),
+                      dtype=torch.int64, device=k.device)
+    if out.numel() == 0:
+        return out
+    lib, fn = _t1("mfcd_threefry_bits")
+    err = fn(kf.data_ptr(), kf.stride(0), kf.stride(1), kf.shape[0], n,
+             out.data_ptr(), int(pairs),
+             torch.cuda.current_stream(k.device).cuda_stream)
+    _build.raise_on(lib, err, "threefry2x32 (T1 bits)")
+    THREEFRY_LAUNCHES += 1
+    return out
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The threefry2x32 hash (20 rounds) of counters ``(x0, x1)``: word
+    tensors, broadcast.  One T1 launch on the card, the plain version on
+    the CPU."""
+    if not _on("threefry2x32", k0.device):
+        return threefry2x32_reference(k0, k1, x0, x1)
+    out = _hash_launch((k0, k1, x0, x1), pairs=True)
+    return out[..., 0], out[..., 1]
+
+
 def key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.key_data(jax.random.key(seed))`` for a 32-bit seed (jax
     without x64 keeps its low word: ``[0, seed mod 2^32]``)."""
@@ -77,12 +181,22 @@ def key(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def fold_in_reference(k: torch.Tensor, data) -> torch.Tensor:
+    """:func:`fold_in` in plain PyTorch, on any device."""
+    d = _u32(data, k.device)
+    o0, o1 = threefry2x32_reference(k[..., 0], k[..., 1],
+                                    torch.zeros_like(d), d)
+    return torch.stack([o0, o1], dim=-1)
+
+
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``data`` may be a tensor broadcast against
     the key's leading dims."""
+    if not _on("fold_in", k.device):
+        return fold_in_reference(k, data)
     d = _u32(data, k.device)
-    o0, o1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
-    return torch.stack([o0, o1], dim=-1)
+    return _hash_launch((k[..., 0], k[..., 1], torch.zeros_like(d), d),
+                        pairs=True)
 
 
 def _iota_pair(shape: Sequence[int], device):
@@ -91,34 +205,61 @@ def _iota_pair(shape: Sequence[int], device):
     return idx >> 32, idx & M32
 
 
-def _hash_shape(k: torch.Tensor, shape: Sequence[int]):
+def _hash_shape_reference(k: torch.Tensor, shape: Sequence[int]):
     shape = tuple(shape)
     hi, lo = _iota_pair(shape, k.device)
     lead = k.shape[:-1]
     pad = (1,) * len(shape)
     k0 = k[..., 0].reshape(lead + pad)
     k1 = k[..., 1].reshape(lead + pad)
-    return threefry2x32(k0, k1, hi, lo)
+    return threefry2x32_reference(k0, k1, hi, lo)
+
+
+def split_reference(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """:func:`split` in plain PyTorch, on any device."""
+    b1, b2 = _hash_shape_reference(k, (num,))
+    return torch.stack([b1, b2], dim=-1)
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2] -> [..., num, 2]``."""
-    b1, b2 = _hash_shape(k, (num,))
-    return torch.stack([b1, b2], dim=-1)
+    if not _on("split", k.device):
+        return split_reference(k, num)
+    return _bits_launch(k, num, pairs=True)
+
+
+def bits_reference(k: torch.Tensor,
+                   shape: Sequence[int] = ()) -> torch.Tensor:
+    """:func:`bits` in plain PyTorch, on any device."""
+    b1, b2 = _hash_shape_reference(k, shape)
+    return b1 ^ b2
 
 
 def bits(k: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)``: ``[..., *shape]`` words."""
-    b1, b2 = _hash_shape(k, shape)
+    shape = tuple(shape)
+    if not _on("bits", k.device):
+        return bits_reference(k, shape)
+    return _bits_launch(k, math.prod(shape), pairs=False).reshape(
+        k.shape[:-1] + shape)
+
+
+def bits_at_reference(k: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """:func:`bits_at` in plain PyTorch, on any device."""
+    index = index.to(torch.int64)
+    b1, b2 = threefry2x32_reference(k[..., 0], k[..., 1], index >> 32,
+                                    index & M32)
     return b1 ^ b2
 
 
 def bits_at(k: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """The words of ``bits(k, shape)`` at flat (row-major) positions
     ``index`` only; ``k [..., 2]`` broadcasts against ``index``."""
+    if not _on("bits_at", k.device):
+        return bits_at_reference(k, index)
     index = index.to(torch.int64)
-    b1, b2 = threefry2x32(k[..., 0], k[..., 1], index >> 32, index & M32)
-    return b1 ^ b2
+    return _hash_launch((k[..., 0], k[..., 1], index >> 32, index & M32),
+                        pairs=False)
 
 
 def _as_f32(x, device) -> torch.Tensor:

@@ -20,10 +20,11 @@ of the JAX package.
 - :func:`train_epoch_reference` is the same function in plain PyTorch:
   index gathers, ``index_add_`` in batch order, the same Adam arithmetic,
   the same executed batches.
-- :func:`epoch_kernel_supported` is the shape gate: at some portable
-  cluster size C (:func:`min_cluster`), one block's share of the run must
-  fit the block's 232,448 bytes of shared memory.  Any batch size works:
-  the kernel loops batch rows and gradient entries over its threads.
+- :func:`epoch_kernel_supported` is the shape gate: at some cluster size
+  C of 1, 2, 4, 8 or 16 (:func:`min_cluster`), one block's share of the
+  run must fit the block's 232,448 bytes of shared memory.  Any batch
+  size works: the kernel loops batch rows and gradient entries over its
+  threads.
 
 ``onehot_forward_logits`` (a TPU matmul stand-in for a gather) is not
 ported: ``models.mf.forward_logits`` computes the same values.
@@ -46,10 +47,15 @@ SMEM_PER_BLOCK = 232_448    # bytes of shared memory one Hopper block may use
 # threads (C = 1: one block, no cluster), tried largest first; or PACKED, a
 # run on one block of 256 threads, three to an SM where shared memory allows.
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
-# The sizes every Hopper card schedules, the gate's basis: C = 16 needs the
-# non-portable cluster attribute, which a card may refuse, so it stays a
-# choice of the chooser only.
+# The sizes every Hopper card schedules (the kernel-split kernels' gate).
+# K1's gate, GATE_CLUSTERS, takes every launch size, smallest first, C = 16
+# included, so that it admits every shape JAX's
+# ``pallas_epoch_supported`` admits (d = 8 with bs <= 64 fits only there):
+# C = 16 needs the non-portable cluster attribute, which the H100 grants;
+# on a card that refuses it, a shape whose floor is 16 raises at its first
+# launch (``cluster_size``), never falls back to autograd or a smaller C.
 PORTABLE_CLUSTERS = (1, 2, 4, 8)
+GATE_CLUSTERS = tuple(sorted(CLUSTER_SIZES))
 PACKED = 0
 _MODES = {"full": 0, "uij": 1, "none": 2}
 _STREAM_ARRAYS = {"full": 1, "uij": 2, "none": 4}
@@ -84,23 +90,22 @@ def epoch_smem_bytes(n: int, m: int, d: int, batch_size: int,
 
 
 def min_cluster(n: int, m: int, d: int, batch_size: int) -> Optional[int]:
-    """The smallest C of ``PORTABLE_CLUSTERS`` at which one block of a run
-    (its share of the rows, and the batch's scratch) fits a block's shared
-    memory; None where none does."""
-    return next((c for c in PORTABLE_CLUSTERS
+    """The smallest C of ``GATE_CLUSTERS`` (1, 2, 4, 8, 16) at which one
+    block of a run (its share of the rows, and the batch's scratch) fits a
+    block's shared memory; None where none does."""
+    return next((c for c in GATE_CLUSTERS
                  if epoch_smem_bytes(n, m, d, batch_size, c)
                  <= SMEM_PER_BLOCK), None)
 
 
 def epoch_kernel_supported(n: int, m: int, d: int, batch_size: int) -> bool:
-    """Does one run's epoch fit a cluster of blocks of a portable size?
-    Shape-only (no R, no card), so the choice of trainer depends on
-    neither."""
+    """Does one run's epoch fit a cluster of at most 16 blocks?  Shape-only
+    (no R, no card), so the choice of trainer depends on neither."""
     return min_cluster(n, m, d, batch_size) is not None
 
 
 def choose_cluster(runs: int, resident_runs: Callable[[int], int],
-                   floor: int = 1) -> int:
+                   floor: int = 1, who: str = "choose_cluster") -> int:
     """The launch shape among the C of ``CLUSTER_SIZES`` at or above
     ``floor`` (the smallest C whose block fits, :func:`min_cluster`): the
     largest C for which ``resident_runs(C)`` (runs the card holds at once
@@ -108,8 +113,10 @@ def choose_cluster(runs: int, resident_runs: Callable[[int], int],
     run is resident in one wave; else, at ``floor`` 1, PACKED (more runs
     than the card holds one to an SM: several runs share each SM; its
     block is the C = 1 block); else the C with the most resident runs (the
-    largest on a tie), whose clusters then run in waves.  Raises where the
-    card holds no cluster of any of those sizes."""
+    largest on a tie), whose clusters then run in waves.  Raises
+    ``ValueError`` (its message led by ``who``) where the card holds no
+    cluster of any of those sizes: at ``floor`` 16, a card that does not
+    schedule the non-portable C = 16."""
     if runs < 1:
         return PACKED if floor == 1 else floor
     held = {}
@@ -123,8 +130,10 @@ def choose_cluster(runs: int, resident_runs: Callable[[int], int],
         return PACKED
     best = max(held, key=lambda c: (held[c], c))
     if held[best] < 1:
-        raise ValueError(f"choose_cluster: the card holds no cluster of any "
-                         f"size from C = {floor} up")
+        sizes = ", ".join(f"C = {c}" for c in sorted(held))
+        raise ValueError(f"{who}: the card holds no cluster of any size from "
+                         f"C = {floor} up ({sizes}; C = 16 needs the "
+                         f"non-portable cluster attribute)")
     return best
 
 
@@ -136,10 +145,10 @@ def check_launch_shape(who: str, cluster: Optional[int],
     ``CLUSTER_SIZES`` entry whose block fits, at or above ``floor``.
     ``smem(C)`` gives the shared memory of one block at C."""
     if floor is None:
-        c = PORTABLE_CLUSTERS[-1]
+        c = GATE_CLUSTERS[-1]
         raise ValueError(
             f"{who}: needs {smem(c)} B of shared memory in each block even "
-            f"at C = {c}, the largest portable cluster (limit "
+            f"at C = {c}, the largest cluster (limit "
             f"{SMEM_PER_BLOCK}; a block holds its share of the rows' state, "
             f"moments and list heads, and the batch's scratch)")
     if cluster is None:
@@ -335,8 +344,10 @@ def cluster_size(runs: int, n: int, m: int, d: int, batch_size: int,
                  device, floor: Optional[int] = None) -> int:
     """:func:`choose_cluster` for this shape on ``device``, from the card's
     occupancy query, at or above ``floor`` (None: K1's,
-    :func:`min_cluster`; a shape no portable C fits raises).  Printed once
-    per process and choice, with the floor."""
+    :func:`min_cluster`; a shape no C up to 16 fits raises, and so does a
+    floor of 16 on a card that holds no 16-block cluster, with the shape
+    in the message).  Printed once per process and choice, with the
+    floor."""
     if floor is None:
         floor = min_cluster(n, m, d, batch_size)
         check_launch_shape(
@@ -345,7 +356,9 @@ def cluster_size(runs: int, n: int, m: int, d: int, batch_size: int,
     idx = torch.device(device).index
     idx = torch.cuda.current_device() if idx is None else idx
     query = lambda c: epoch_occupancy(n, m, d, batch_size, c, idx)[1]
-    c = choose_cluster(runs, query, floor)
+    c = choose_cluster(runs, query, floor,
+                       who=f"cluster_size: n={n}, m={m}, d={d}, "
+                           f"bs={batch_size}, smallest C {floor}")
     choice = (idx, runs, n, m, d, batch_size, floor, c)
     if choice not in _printed_clusters:
         _printed_clusters.add(choice)

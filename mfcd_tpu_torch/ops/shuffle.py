@@ -8,22 +8,39 @@ add rounds with per-key constants), restricted to the valid prefix
 
 Words are uint32 values in int64 lanes.  Every function broadcasts over
 leading dimensions: a key ``[R, 2]`` with ``count`` ``[R]`` permutes
-``[R, S]`` arrays, one permutation per run.  The data-dependent walks loop
-in Python while any lane is outside the prefix (one host sync per
-iteration on the card).
+``[R, S]`` arrays, one permutation per run.
+
+On CUDA tensors :func:`epoch_permutation`, :func:`exact_prefix_permutation`
+and :func:`exact_prefix_permutation_inverse` launch the keyed PRP kernel S1
+and :func:`mix_stream` the fused epoch shuffle S2 (``ops/csrc/
+shuffle_kernel.cu``; ``PRP_LAUNCHES``, ``SHUFFLE_LAUNCHES`` count them):
+each lane walks alone, with no host sync.  On CPU tensors they run the
+plain versions, written in the kernels' shape; any other device raises.
+The ``*_reference`` functions are those plain versions on any device,
+and launch no kernel (their threefry is ``prng``'s plain one too).
+A walk's lane that has landed is a fixed point of ``where(x < count, x,
+mix(x))``, so the plain walk may stop as soon as no lane is out of range
+(a host read costs nothing on the CPU) and still give each lane the bits
+of its own walk.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import sys
 
+import numpy as np
 import torch
 
 from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.core.prng import M32, mul32
+from mfcd_tpu_torch.ops import _build
 
 _WALK_ITERS = 48
+PRP_LAUNCHES = 0        # S1 launches, counted where they are made
+SHUFFLE_LAUNCHES = 0    # S2 launches, likewise
+_CAPPED, _EXACT, _INVERSE = 0, 1, 2   # S1's walk modes
 
 
 def _col(count, like: torch.Tensor) -> torch.Tensor:
@@ -33,8 +50,10 @@ def _col(count, like: torch.Tensor) -> torch.Tensor:
 
 
 def _derive_constants(key: torch.Tensor, rounds: int = 3):
-    """Per-key odd multipliers and additive constants ``[..., rounds]``."""
-    words = prng.bits(key, (2 * rounds,))
+    """Per-key odd multipliers and additive constants ``[..., rounds]``,
+    from the plain threefry on any device (S1 and S2 derive them in the
+    kernel)."""
+    words = prng.bits_reference(key, (2 * rounds,))
     return words[..., :rounds] | 1, words[..., rounds:]
 
 
@@ -50,6 +69,9 @@ def _mix(x: torch.Tensor, muls, adds, k_bits: int) -> torch.Tensor:
 
 
 def _walk(x, step, count_u, max_iters=None):
+    """Apply ``step`` to each lane until it lands below ``count_u`` (at most
+    ``max_iters`` times): the fixed point ``where(x < count, x, step(x))``,
+    each lane's result its own; stops once every lane has landed."""
     it = 0
     while (max_iters is None or it < max_iters) and bool(
             (x >= count_u).any()):
@@ -58,10 +80,76 @@ def _walk(x, step, count_u, max_iters=None):
     return x
 
 
-def epoch_permutation(key: torch.Tensor, slots: torch.Tensor, count,
-                      k_bits: int) -> torch.Tensor:
-    """Map slot indices ``[..., N]`` -> rows in [0, count), bijectively on
-    the prefix ``slots < count`` (48-step walk + strided fallback)."""
+def _library():
+    lib = _build.bind("shuffle_kernel.cu", "mfcd_prp",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                               ctypes.c_void_p]
+                      + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
+    return _build.bind("shuffle_kernel.cu", "mfcd_mix_stream",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+
+
+def _check_k_bits(who: str, k_bits: int) -> None:
+    if not 1 <= k_bits <= 32:
+        raise ValueError(f"{who}: k_bits={k_bits}, expected 1 to 32")
+
+
+def _lead(*shapes) -> tuple:
+    """The broadcast of ``shapes``.  numpy's: ``torch.broadcast_shapes``
+    imports the symbolic-shape machinery on first use, seconds of host
+    time in a process's first launch."""
+    return tuple(int(n) for n in np.broadcast_shapes(*shapes))
+
+
+def _prp_launch(who: str, key: torch.Tensor, slots: torch.Tensor, count,
+                k_bits: int, mode: int) -> torch.Tensor:
+    """S1: one keyed PRP walk per slot of ``slots [..., N]``, keys
+    ``[..., 2]`` and ``count`` (int or ``[...]``) broadcast against its
+    leading dims; int32 ``[..., N]``."""
+    global PRP_LAUNCHES
+    _check_k_bits(who, k_bits)
+    dev = slots.device
+    if slots.dim() < 1 or key.shape[-1:] != (2,):
+        raise ValueError(f"{who}: slots {tuple(slots.shape)} and key "
+                         f"{tuple(key.shape)}, expected [..., N], [..., 2]")
+    if isinstance(count, torch.Tensor):
+        if count.device != dev or key.device != dev:
+            raise ValueError(f"{who}: key, slots and count must share "
+                             f"{dev}")
+        lead = _lead(key.shape[:-1], slots.shape[:-1], count.shape)
+        cnt = count.to(torch.int64).expand(lead)
+    else:
+        if key.device != dev:
+            raise ValueError(f"{who}: key and slots must share {dev}")
+        lead = _lead(key.shape[:-1], slots.shape[:-1])
+        cnt = torch.full(lead, int(count), dtype=torch.int64, device=dev)
+    n = slots.shape[-1]
+    keys = key.to(torch.int64).expand(lead + (2,)).reshape(-1, 2).contiguous()
+    cnt = cnt.reshape(-1).contiguous()
+    flat = slots.to(torch.int64)
+    if slots.shape[:-1].numel() == 1:   # one row of slots serves every key
+        flat, slot_row = flat.reshape(n).contiguous(), 0
+    else:
+        flat = flat.expand(lead + (n,)).reshape(-1, n).contiguous()
+        slot_row = n
+    out = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    err = lib.mfcd_prp(keys.data_ptr(), cnt.data_ptr(), flat.data_ptr(),
+                       slot_row, out.data_ptr(), keys.shape[0], n, mode,
+                       k_bits, torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(lib, err, f"{who} (S1)")
+    PRP_LAUNCHES += 1
+    return out
+
+
+def epoch_permutation_reference(key: torch.Tensor, slots: torch.Tensor,
+                                count, k_bits: int) -> torch.Tensor:
+    """:func:`epoch_permutation` in plain PyTorch (S1's capped mode)."""
     muls, adds = _derive_constants(key)
     slots = slots.to(torch.int64)
     count_u = _col(count, slots) & M32
@@ -71,6 +159,16 @@ def epoch_permutation(key: torch.Tensor, slots: torch.Tensor, count,
     # Residual walk failures degrade to a strided scramble.
     fallback = mul32(slots, muls[..., 0:1]) % torch.clamp(count_u, min=1)
     return torch.where(x < count_u, x, fallback).to(torch.int32)
+
+
+def epoch_permutation(key: torch.Tensor, slots: torch.Tensor, count,
+                      k_bits: int) -> torch.Tensor:
+    """Map slot indices ``[..., N]`` -> rows in [0, count), bijectively on
+    the prefix ``slots < count`` (48-step walk + strided fallback)."""
+    if prng._on("epoch_permutation", slots.device):
+        return _prp_launch("epoch_permutation", key, slots, count, k_bits,
+                           _CAPPED)
+    return epoch_permutation_reference(key, slots, count, k_bits)
 
 
 def _inverse_odd(m: torch.Tensor) -> torch.Tensor:
@@ -95,13 +193,11 @@ def _unmix(y: torch.Tensor, muls, adds, k_bits: int) -> torch.Tensor:
     return y
 
 
-def exact_prefix_permutation(key: torch.Tensor, slots: torch.Tensor, count,
-                             k_bits: int) -> torch.Tensor:
-    """Exact bijection of ``slots < count`` onto [0, count) (uncapped walk).
-
-    Lanes with ``slots >= count`` (as uint32: negative slots too) are
-    remapped to slot 0 first; their outputs are meaningless and must be
-    discarded by the caller."""
+def exact_prefix_permutation_reference(key: torch.Tensor,
+                                       slots: torch.Tensor, count,
+                                       k_bits: int) -> torch.Tensor:
+    """:func:`exact_prefix_permutation` in plain PyTorch (S1's exact
+    mode)."""
     muls, adds = _derive_constants(key)
     slots = slots.to(torch.int64) & M32       # uint32, as in JAX: -1 is out
     count_u = torch.clamp(_col(count, slots) & M32, min=1)
@@ -111,9 +207,24 @@ def exact_prefix_permutation(key: torch.Tensor, slots: torch.Tensor, count,
     return x.to(torch.int32)
 
 
-def exact_prefix_permutation_inverse(key: torch.Tensor, values: torch.Tensor,
-                                     count, k_bits: int) -> torch.Tensor:
-    """Exact inverse of :func:`exact_prefix_permutation` on [0, count)."""
+def exact_prefix_permutation(key: torch.Tensor, slots: torch.Tensor, count,
+                             k_bits: int) -> torch.Tensor:
+    """Exact bijection of ``slots < count`` onto [0, count) (uncapped walk).
+
+    Lanes with ``slots >= count`` (as uint32: negative slots too) are
+    remapped to slot 0 first; their outputs are meaningless and must be
+    discarded by the caller."""
+    if prng._on("exact_prefix_permutation", slots.device):
+        return _prp_launch("exact_prefix_permutation", key, slots, count,
+                           k_bits, _EXACT)
+    return exact_prefix_permutation_reference(key, slots, count, k_bits)
+
+
+def exact_prefix_permutation_inverse_reference(
+        key: torch.Tensor, values: torch.Tensor, count,
+        k_bits: int) -> torch.Tensor:
+    """:func:`exact_prefix_permutation_inverse` in plain PyTorch (S1's
+    inverse mode)."""
     muls, adds = _derive_constants(key)
     values = values.to(torch.int64) & M32
     count_u = torch.clamp(_col(count, values) & M32, min=1)
@@ -121,6 +232,16 @@ def exact_prefix_permutation_inverse(key: torch.Tensor, values: torch.Tensor,
     x = _unmix(v, muls, adds, k_bits)
     x = _walk(x, lambda y: _unmix(y, muls, adds, k_bits), count_u)
     return x.to(torch.int32)
+
+
+def exact_prefix_permutation_inverse(key: torch.Tensor, values: torch.Tensor,
+                                     count, k_bits: int) -> torch.Tensor:
+    """Exact inverse of :func:`exact_prefix_permutation` on [0, count)."""
+    if prng._on("exact_prefix_permutation_inverse", values.device):
+        return _prp_launch("exact_prefix_permutation_inverse", key, values,
+                           count, k_bits, _INVERSE)
+    return exact_prefix_permutation_inverse_reference(key, values, count,
+                                                      k_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -160,54 +281,114 @@ def stream_tile_width(batch_size: int) -> int | None:
     return w if w >= 8 else None
 
 
-def _rotate_prefix(x: torch.Tensor, rho, count) -> torch.Tensor:
-    """Cyclically rotate each valid prefix ``x[..., :count]`` left by ``rho``.
+def _source_map(key: torch.Tensor, epoch: int, count, s_len: int,
+                k_bits: int, period: int, tile_w: int | None) -> torch.Tensor:
+    """The slot each output slot of one epoch's bijection reads, int64
+    ``[..., s_len]``: S2's map in plain PyTorch.
 
-    Slots >= count receive in-bounds garbage; callers mask by slot index."""
-    s_len = x.shape[-1]
-    doubled = torch.cat([x, x], dim=-1)
-    s = torch.arange(s_len, dtype=torch.int64, device=x.device)
-    rho = _col(rho, x)
-    count = _col(count, x)
-    a = torch.gather(doubled, -1, (rho + s).expand(x.shape))
-    b = torch.gather(doubled, -1, (s_len + rho - count + s).expand(x.shape))
-    return torch.where(s < count - rho, a, b)
+    ``key`` is the epochs key ``[..., 2]`` (``epoch`` is folded in here).
+    A fresh epoch maps slot s to ``epoch_permutation(k_prp, s)``; a cheap
+    one rotates the prefix left by rho (``bits(k_rho) % count``) and then
+    moves each full tile t < count // tile_w to the PRP of t (the partial
+    tile and the padding stay), so output slot s reads slot ``rot(p)``,
+    ``p = tile_src(s // tile_w) * tile_w + s % tile_w``.  Slots past count
+    read in-bounds padding, as JAX's rotation of the doubled array does."""
+    k_prp, k_rho, k_tile = prng.split_reference(
+        prng.fold_in_reference(key, epoch), 3).unbind(-2)
+    slots = torch.arange(s_len, dtype=torch.int64, device=key.device)
+    if period == 1 or epoch % period == 0:
+        return epoch_permutation_reference(k_prp, slots, count,
+                                           k_bits).to(torch.int64)
+    count_t = torch.as_tensor(count, dtype=torch.int64, device=key.device)
+    rho = prng.bits_reference(k_rho, ()) % torch.clamp(count_t & M32,
+                                                       min=1)
+    p = slots
+    if tile_w is not None:
+        t_bits = max(k_bits - tile_w.bit_length() + 1, 1)
+        full = (count_t // tile_w).unsqueeze(-1)
+        tiles = torch.arange(s_len // tile_w, dtype=torch.int64,
+                             device=key.device)
+        prp = epoch_permutation_reference(k_tile, tiles,
+                                          torch.clamp(full[..., 0], min=1),
+                                          t_bits).to(torch.int64)
+        tile_src = torch.where(tiles < full, prp, tiles)
+        p = tile_src[..., slots // tile_w] * tile_w + slots % tile_w
+    rho, c = rho.unsqueeze(-1), count_t.unsqueeze(-1)
+    return torch.where(p < c - rho, p + rho, p + rho - c)
 
 
-def _permute_full_tiles(x: torch.Tensor, key: torch.Tensor, count,
-                        tile_w: int, t_bits: int) -> torch.Tensor:
-    """PRP-permute the fully-valid tiles of ``x`` among themselves."""
-    tiles = x.shape[-1] // tile_w
-    full = torch.as_tensor(count, dtype=torch.int64, device=x.device) // tile_w
-    t_slots = torch.arange(tiles, dtype=torch.int64, device=x.device)
-    prp = epoch_permutation(key, t_slots, torch.clamp(full, min=1), t_bits)
-    idx = torch.where(t_slots < full.unsqueeze(-1), prp.to(torch.int64),
-                      t_slots)
-    x3 = x.reshape(*x.shape[:-1], tiles, tile_w)
-    idx = idx.expand(x.shape[:-1] + (tiles,)).unsqueeze(-1)
-    return torch.gather(x3, -2, idx.expand(*idx.shape[:-1], tile_w)).reshape(
-        x.shape)
+def mix_stream_reference(arrays, key: torch.Tensor, epoch: int, count,
+                         k_bits: int, *, period: int,
+                         tile_w: int | None):
+    """:func:`mix_stream` in plain PyTorch: the composed source map, then
+    one gather per array."""
+    src = _source_map(key, epoch, count, arrays[0].shape[-1], k_bits,
+                      period, tile_w)
+    return tuple(torch.gather(a, -1, src.expand(a.shape)) for a in arrays)
 
 
-def mix_stream(arrays, key: torch.Tensor, epoch_idx: int, count, k_bits: int,
+def _mix_stream_launch(arrays, key: torch.Tensor, epoch: int, count,
+                       k_bits: int, period: int, tile_w: int | None):
+    """S2: one launch advances every run's arrays ``[..., S]`` (1, 2 or 4
+    of 32-bit words, one layout) by one epoch, into fresh outputs."""
+    global SHUFFLE_LAUNCHES
+    who = "mix_stream"
+    _check_k_bits(who, k_bits)
+    if len(arrays) not in (1, 2, 4):
+        raise ValueError(f"{who}: {len(arrays)} arrays, expected 1, 2 or 4")
+    a0 = arrays[0]
+    dev, shape = a0.device, tuple(a0.shape)
+    for a in arrays:
+        if a.device != dev or tuple(a.shape) != shape:
+            raise ValueError(f"{who}: arrays of shapes "
+                             f"{[tuple(b.shape) for b in arrays]} on "
+                             f"{[str(b.device) for b in arrays]}")
+        if a.element_size() != 4 or not a.is_contiguous():
+            raise ValueError(f"{who}: arrays must be contiguous 32-bit "
+                             f"words, got {a.dtype}")
+    if not shape or key.device != dev or tuple(key.shape) != shape[:-1] + (2,):
+        raise ValueError(f"{who}: key {tuple(key.shape)} on {key.device}, "
+                         f"expected {shape[:-1] + (2,)} on {dev}")
+    if epoch < 0 or period < 1:
+        raise ValueError(f"{who}: epoch={epoch}, period={period}")
+    rows = a0.numel() // shape[-1] if shape[-1] else 0
+    if isinstance(count, torch.Tensor):
+        if count.device != dev or count.numel() != rows:
+            raise ValueError(f"{who}: count {tuple(count.shape)} on "
+                             f"{count.device}, expected {rows} on {dev}")
+        count = count.to(torch.int32).reshape(-1).contiguous()
+    else:
+        count = torch.full((rows,), int(count), dtype=torch.int32,
+                           device=dev)
+    keys = key.to(torch.int64).reshape(-1, 2).contiguous()
+    outs = tuple(torch.empty_like(a) for a in arrays)
+    if not rows or not shape[-1]:
+        return outs
+    lib = _library()
+    ins = (ctypes.c_void_p * 4)(*(a.data_ptr() for a in arrays))
+    dst = (ctypes.c_void_p * 4)(*(o.data_ptr() for o in outs))
+    err = lib.mfcd_mix_stream(keys.data_ptr(), count.data_ptr(), ins, dst,
+                              len(arrays), rows, shape[-1], epoch, period,
+                              k_bits, tile_w or 0,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(lib, err, f"{who} (S2)")
+    SHUFFLE_LAUNCHES += 1
+    return outs
+
+
+def mix_stream(arrays, key: torch.Tensor, epoch: int, count, k_bits: int,
                *, period: int, tile_w: int | None):
     """Advance a carried epoch stream by one epoch's bijection.
 
     ``arrays`` is a tuple of ``[..., S]`` row arrays sharing one layout;
-    valid rows occupy the prefix [0, count).  Returns the mixed tuple."""
-    k_prp, k_rho, k_tile = prng.split(key, 3).unbind(-2)
-    s_len = arrays[0].shape[-1]
-    if period == 1 or epoch_idx % period == 0:
-        slots = torch.arange(s_len, dtype=torch.int64, device=key.device)
-        sel = epoch_permutation(k_prp, slots, count, k_bits).to(torch.int64)
-        return tuple(torch.gather(a, -1, sel.expand(a.shape))
-                     for a in arrays)
-
-    count_t = torch.as_tensor(count, dtype=torch.int64, device=key.device)
-    rho = prng.bits(k_rho, ()) % torch.clamp(count_t & M32, min=1)
-    out = tuple(_rotate_prefix(a, rho, count_t) for a in arrays)
-    if tile_w is not None:
-        t_bits = max(k_bits - tile_w.bit_length() + 1, 1)
-        out = tuple(_permute_full_tiles(a, k_tile, count_t, tile_w, t_bits)
-                    for a in out)
-    return out
+    valid rows occupy the prefix [0, count).  ``key`` is the epochs key
+    ``[..., 2]``: the epoch's key is ``fold_in(key, epoch)``, as the JAX
+    trainers pass it to ``mix_stream``.  Returns the mixed tuple, fresh
+    tensors.  CUDA tensors take one S2 launch (32-bit arrays, contiguous);
+    CPU tensors the plain version."""
+    arrays = tuple(arrays)
+    if prng._on("mix_stream", arrays[0].device):
+        return _mix_stream_launch(arrays, key, epoch, count, k_bits, period,
+                                  tile_w)
+    return mix_stream_reference(arrays, key, epoch, count, k_bits,
+                                period=period, tile_w=tile_w)

@@ -70,7 +70,7 @@ _logged_kernel_choice: Optional[tuple] = None
 
 def default_use_kernel(cfg: RunConfig, device) -> bool:
     """The fused-epoch kernel trainer on CUDA when a run fits a cluster of
-    blocks of a portable size (``ops.kernels.min_cluster``).
+    at most 16 blocks (``ops.kernels.min_cluster``).
 
     Mirrors ``default_use_pallas``: decided from the shape alone, before any
     launch and without the card.  Printed once per process and decision,

@@ -20,7 +20,6 @@ from typing import Tuple
 import torch
 
 from mfcd_tpu_torch.data.btl import LabeledSplit
-from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.models.mf import MatrixFactorization, MFParams, forward_logits
 from mfcd_tpu_torch.ops.losses import bce_with_logits
 from mfcd_tpu_torch.ops.optim import adam_init, adam_update
@@ -127,15 +126,14 @@ def train_model(
     wd = torch.as_tensor(weight_decay, dtype=torch.float32,
                          device=dev).expand(r)
 
-    stream = tuple(_pad_last(a, padded - rows)
+    stream = tuple(_pad_last(a.contiguous(), padded - rows)
                    for a in (train.u, train.i, train.j, train.z))
     model = MatrixFactorization(params)
     opt = adam_init((model.U, model.V), runs_shape=(r,))
     slot_iota = torch.arange(batch_size, device=dev)
     train_losses, val_losses = [], []
     for epoch in range(num_epochs):
-        kperm = prng.fold_in(epochs_key, epoch)
-        stream = mix_stream(stream, kperm, epoch, count, k_bits,
+        stream = mix_stream(stream, epochs_key, epoch, count, k_bits,
                             period=period, tile_w=tile_w)
         su, si, sj, sz = (a.reshape(r, num_batches, batch_size)
                           for a in stream)

@@ -870,3 +870,155 @@ def test_cdf_samplers_do_not_depend_on_the_chunk():
         for lo, hi in ((0, 1), (1, 3), (3, 7)):
             part = fn(keys[lo:hi].to(dev), x[lo:hi].to(dev), 2048)
             assert all(torch.equal(a[lo:hi], b) for a, b in zip(full, part))
+
+
+# S1, S2 and T1 (ops/csrc/shuffle_kernel.cu, prng_kernel.cu) against their
+# plain versions on the card, bit for bit (integer maps), at the main path's
+# shapes: (R, S, count, k_bits): the canonical run (R = 4, S = 2,048 x 64),
+# hard K = 10 (800,000 rows, S = 2^20) and hard K = 50 (R = 2, S = 2^22).
+SHUFFLE_SHAPES = {
+    "canonical": (4, 131_072, 80_000, 17),
+    "hard-k10": (2, 1 << 20, 800_000, 20),
+    "hard-k50": (2, 1 << 22, 4_000_000, 22),
+}
+
+
+def _shuffle_keys(r, dev, seed=0):
+    from mfcd_tpu_torch.core import prng
+
+    return prng.split(prng.key(seed), r).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["capped", "exact", "inverse"])
+@pytest.mark.parametrize("shape", list(SHUFFLE_SHAPES))
+def test_prp_kernel_matches_plain_version(shape, mode):
+    from mfcd_tpu_torch.ops import shuffle as SH
+
+    dev = _card()
+    r, s_len, count, k_bits = SHUFFLE_SHAPES[shape]
+    keys = _shuffle_keys(r, dev)
+    counts = torch.tensor([count - 17 * i for i in range(r)], device=dev)
+    slots = torch.arange(s_len, device=dev)
+    name = {"capped": "epoch_permutation",
+            "exact": "exact_prefix_permutation",
+            "inverse": "exact_prefix_permutation_inverse"}[mode]
+    # one row of slots for every key, then a row of its own per key
+    rows = torch.stack([slots.roll(7 * i) for i in range(r)])
+    for s in (slots, rows):
+        before = SH.PRP_LAUNCHES
+        got = getattr(SH, name)(keys, s, counts, k_bits)
+        assert SH.PRP_LAUNCHES == before + 1
+        want = getattr(SH, name + "_reference")(keys, s, counts, k_bits)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arrays", [1, 2, 4])
+@pytest.mark.parametrize("tile_w", [None, 64])
+@pytest.mark.parametrize("shape", list(SHUFFLE_SHAPES))
+def test_mix_stream_kernel_matches_plain_version(shape, tile_w, arrays):
+    # Epochs 0 (fresh PRP) to 5 (cheap epochs, then fresh again at 4), the
+    # whole [R, S] arrays, pad slots included.
+    from mfcd_tpu_torch.ops import shuffle as SH
+
+    dev = _card()
+    r, s_len, count, k_bits = SHUFFLE_SHAPES[shape]
+    keys = _shuffle_keys(r, dev, 1)
+    counts = torch.tensor([count - 37 * i for i in range(r)],
+                          dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(arrays)
+    arrs = [torch.randint(-2**31, 2**31 - 1, (r, s_len), dtype=torch.int32,
+                          device=dev, generator=g)
+            for _ in range(arrays - 1)]
+    arrs.append(torch.rand((r, s_len), device=dev, generator=g))
+    got = want = tuple(arrs)
+    for epoch in range(6):
+        before = SH.SHUFFLE_LAUNCHES
+        got = SH.mix_stream(got, keys, epoch, counts, k_bits, period=4,
+                            tile_w=tile_w)
+        assert SH.SHUFFLE_LAUNCHES == before + 1
+        want = SH.mix_stream_reference(want, keys, epoch, counts, k_bits,
+                                       period=4, tile_w=tile_w)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                epoch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4,), (2, 3, 1000), (1 << 22,)])
+def test_threefry_kernel_matches_plain_version(shape):
+    # T1's counter entry (split, bits) and its hash entry (fold_in, bits_at,
+    # threefry2x32 over broadcast words), counters past 2^32 included.
+    from mfcd_tpu_torch.core import prng
+
+    dev = _card()
+    keys = _shuffle_keys(3, dev, 2)
+    before = prng.THREEFRY_LAUNCHES
+    pairs = [
+        (prng.split(keys, 7), prng.split_reference(keys, 7)),
+        (prng.bits(keys[:2], shape), prng.bits_reference(keys[:2], shape)),
+        (prng.fold_in(keys, 2**31 + 5),
+         prng.fold_in_reference(keys, 2**31 + 5)),
+        (prng.fold_in(keys, torch.arange(3, device=dev)),
+         prng.fold_in_reference(keys, torch.arange(3, device=dev))),
+    ]
+    idx = torch.arange(1000, device=dev) * 7_777_777_777 + 5
+    pairs.append((prng.bits_at(keys[:, None], idx),
+                  prng.bits_at_reference(keys[:, None], idx)))
+    got = prng.threefry2x32(keys[:, None, 0], keys[0, 1], idx >> 32,
+                            idx & 0xFFFFFFFF)
+    want = prng.threefry2x32_reference(keys[:, None, 0], keys[0, 1],
+                                       idx >> 32, idx & 0xFFFFFFFF)
+    pairs += list(zip(got, want))
+    assert prng.THREEFRY_LAUNCHES == before + 6
+    for a, b in pairs:
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_trainer_epoch_loop_has_no_host_sync(monkeypatch):
+    # The canonical run (n = m = 1000, d = 2, p = 0.2, 30 epochs, reps = 4)
+    # with train_runs_kernel under sync debug mode "error": any host sync
+    # (a read-back, a pageable copy) in the trainer raises.  30 S2 and 30
+    # K1 launches.
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.ops import shuffle as SH
+    from mfcd_tpu_torch.sweep import engine
+
+    dev = _card()
+    inner = KT.train_runs_kernel
+
+    def strict(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(engine, "train_runs_kernel", strict)
+    cfg = RunConfig(n=1000, m=1000, d=2, p=0.2, s=5.0, lr=1e-3,
+                    weight_decay=5e-6, num_epochs=30, reps=4)
+    s2, k1 = SH.SHUFFLE_LAUNCHES, K.EPOCH_LAUNCHES
+    res = engine.run_config(cfg, seed=0, device=dev)
+    assert SH.SHUFFLE_LAUNCHES - s2 == 30 and K.EPOCH_LAUNCHES - k1 == 30
+    assert float(np.mean(res["accuracy"])) > 0.6
+
+
+@pytest.mark.cuda
+def test_kernel_at_d8_takes_c16():
+    # n = m = 7,168, d = 8, bs = 64: JAX's kernel admits it, and the block
+    # fits only at C = 16, the gate's new floor.  Against the plain version
+    # (its index_add_ adds with atomics on the card: the stated bound), and
+    # two launches bit-equal.
+    dev = _card()
+    n, d = 7168, 8
+    assert K.min_cluster(n, n, d, 64) == 16
+    assert K.epoch_kernel_supported(n, n, d, 64)
+    state, args, pack = _inputs(31, n, n, d, 64, 16, [1024, 1000],
+                                [1e-3, 3e-3], "none", dev)
+    assert K.cluster_size(2, n, n, d, 64, dev) == 16
+    got = _flat(_compare(state, args, pack, dev))
+    again = _k1(state, args, pack, dev, 16)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))

@@ -180,9 +180,9 @@ def test_epoch_kernel_supported_canonical():
     assert 3 * (K.epoch_smem_bytes(1000, 1000, 2, 64) + 1024) <= 233_472
     assert K.epoch_kernel_supported(1000, 1000, 2, 64)
     assert pallas_epoch_supported(1000, 1000, 2, 1250, 64)
-    # Past the reach of C = 8, the largest portable cluster (n = m up to
-    # 22,776 fit there: tests/test_torch_scale.py).
-    assert not K.epoch_kernel_supported(30_000, 30_000, 2, 64)
+    # Past the reach of C = 16, the gate's largest cluster (n = m up to
+    # 45,552 fit there: tests/test_torch_scale.py).
+    assert not K.epoch_kernel_supported(50_000, 50_000, 2, 64)
     # Any batch size whose shared memory fits (no one-row-per-thread cap).
     assert K.epoch_kernel_supported(100, 100, 2, 1024)
     assert K.epoch_kernel_supported(1000, 1000, 2, 2048)
@@ -311,9 +311,11 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_build_target_follows_included_headers(tmp_path):
     # The library's name hashes the source and every csrc/ header it
-    # includes: an edit to the shared header rebuilds both epoch kernel
-    # sources and not the AltSVM kernel's, which includes no header; an
-    # edit to a header nothing includes rebuilds none.  No nvcc.
+    # includes: an edit to the shared epoch header rebuilds both epoch
+    # kernel sources and neither the AltSVM kernel's, which includes no
+    # header, nor the threefry ones; an edit to threefry.cuh rebuilds the
+    # prng and shuffle kernels only; an edit to a header nothing includes
+    # rebuilds none.  No nvcc.
     import os
     import shutil
 
@@ -323,12 +325,17 @@ def test_build_target_follows_included_headers(tmp_path):
         shutil.copy(os.path.join(_build.CSRC, name), tmp_path / name)
     every = sorted(str(p) for p in tmp_path.glob("*.cu"))
     assert [os.path.basename(p) for p in every] == [
-        "altsvm_dcd.cu", "epoch_kernel.cu", "epoch_variants.cu"]
-    alone, sources = every[0], every[1:]
+        "altsvm_dcd.cu", "epoch_kernel.cu", "epoch_variants.cu",
+        "prng_kernel.cu", "shuffle_kernel.cu"]
+    alone, sources, fry = every[0], every[1:3], every[3:]
     assert _build._local_files(alone) == [alone]
     for src in sources:
         assert str(tmp_path / "epoch_body.cuh") in _build._local_files(src)
+    for src in fry:
+        assert _build._local_files(src) == [src,
+                                            str(tmp_path / "threefry.cuh")]
     before = [_build._target(src) for src in sources]
+    fry_before = [_build._target(src) for src in fry]
     alone_before = _build._target(alone)
     (tmp_path / "unused.cuh").write_text("// included by nothing\n")
     assert [_build._target(src) for src in sources] == before
@@ -339,3 +346,9 @@ def test_build_target_follows_included_headers(tmp_path):
     assert all(os.path.basename(a).startswith(os.path.basename(b)[:-len(
         b.split("_")[-1])]) for a, b in zip(after, before))
     assert _build._target(alone) == alone_before
+    assert [_build._target(src) for src in fry] == fry_before
+    with open(tmp_path / "threefry.cuh", "a") as f:
+        f.write("// touched\n")
+    assert all(a != b for a, b in zip(
+        fry_before, [_build._target(src) for src in fry]))
+    assert [_build._target(src) for src in sources] == after

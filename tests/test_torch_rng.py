@@ -116,3 +116,98 @@ def test_key_from_seed_bit_equal(seed):
 def test_split_permutation_matches():
     assert (jrng.split_permutation(101) == trng.split_permutation(101)).all()
     assert (_data(jrng.split_key()) == trng.split_key().numpy()).all()
+
+
+# Counters whose high word is non-zero: bits(k, shape) hashes flat index i
+# as the pair (i >> 32, i & 0xFFFFFFFF), so past 2^32 elements the high
+# word moves.  Held against jax's own threefry2x32 primitive (the one
+# jax.random.bits lowers to), since no test can draw 2^32 words.
+M = 0xFFFFFFFF
+HIGH = np.array([2**32, 2**32 + 1, 3 * 2**32 + 7, 2**40 + 12345,
+                 2**47 - 1, 2**31, M], np.int64)
+
+
+def _jax_hash(k, x0, x1):
+    from jax._src import prng as jprng
+
+    kd = jax.random.key_data(k)
+    o0, o1 = jprng.threefry2x32_p.bind(kd[0], kd[1],
+                                       jnp.asarray(x0, jnp.uint32),
+                                       jnp.asarray(x1, jnp.uint32))
+    return np.asarray(o0).astype(np.int64), np.asarray(o1).astype(np.int64)
+
+
+def test_counter_layout_is_jax_bits_and_split():
+    k = jax.random.fold_in(jax.random.key(9), 4)
+    o0, o1 = _jax_hash(k, np.zeros(9, np.int64), np.arange(9))
+    assert ((o0 ^ o1) == np.asarray(jax.random.bits(k, (9,), jnp.uint32))
+            ).all()
+    assert (np.stack([o0, o1], -1) == _data(jax.random.split(k, 9))).all()
+
+
+def test_hash_and_bits_at_with_a_high_counter_word_bit_equal():
+    k = jax.random.fold_in(jax.random.key(9), 4)
+    tk = key_from_jax(jax.random.key_data(k))
+    o0, o1 = _jax_hash(k, HIGH >> 32, HIGH & M)
+    g0, g1 = prng.threefry2x32(tk[0], tk[1], torch.from_numpy(HIGH >> 32),
+                               torch.from_numpy(HIGH & M))
+    assert (g0.numpy() == o0).all() and (g1.numpy() == o1).all()
+    assert (prng.bits_at(tk, torch.from_numpy(HIGH)).numpy()
+            == (o0 ^ o1)).all()
+    # bits_at over the low counters is bits, and split's pairs are the hash
+    assert (prng.bits_at(tk, torch.arange(1001)).numpy()
+            == np.asarray(jax.random.bits(k, (1001,), jnp.uint32))).all()
+    assert (prng.split(tk, 5).numpy() == _data(jax.random.split(k, 5))).all()
+
+
+@pytest.mark.parametrize("data", [0, 7, 2**31 - 1, 2**31, 2**32 - 1])
+def test_fold_in_bit_equal(data):
+    k = jax.random.fold_in(jax.random.key(3), 1)
+    tk = key_from_jax(jax.random.key_data(k))
+    want = _data(jax.random.fold_in(k, np.uint32(data)))
+    assert (prng.fold_in(tk, data).numpy() == want).all()
+    assert (prng.fold_in(tk, torch.tensor([data])).numpy()[0] == want).all()
+
+
+def _prng_calls(k):
+    idx = torch.arange(5, device=k.device)
+    return {"split": lambda: prng.split(k, 3),
+            "bits": lambda: prng.bits(k, (4,)),
+            "fold_in": lambda: prng.fold_in(k, 5),
+            "bits_at": lambda: prng.bits_at(k, idx),
+            "threefry2x32": lambda: prng.threefry2x32(
+                k[..., 0], k[..., 1], idx, idx)}
+
+
+@pytest.mark.parametrize("name", ["split", "bits", "fold_in", "bits_at",
+                                  "threefry2x32"])
+def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
+    def no_launch(*a, **kw):
+        raise AssertionError("a CPU tensor reached the kernel")
+
+    monkeypatch.setattr(prng, "_hash_launch", no_launch)
+    monkeypatch.setattr(prng, "_bits_launch", no_launch)
+    before = prng.THREEFRY_LAUNCHES
+    got = _prng_calls(prng.key(5))[name]()
+    assert prng.THREEFRY_LAUNCHES == before
+    k = jax.random.key(5)
+    want = {"split": lambda: jax.random.split(k, 3),
+            "bits": lambda: jax.random.bits(k, (4,), jnp.uint32),
+            "fold_in": lambda: jax.random.fold_in(k, 5),
+            "bits_at": lambda: jax.random.bits(k, (5,), jnp.uint32),
+            "threefry2x32": lambda: _jax_hash(k, np.arange(5),
+                                              np.arange(5))}[name]()
+    if name == "threefry2x32":
+        assert all((g.numpy() == w).all() for g, w in zip(got, want))
+    else:
+        want = _data(want) if name in ("split", "fold_in") else \
+            np.asarray(want).astype(np.int64)
+        assert (got.numpy() == want).all()
+
+
+@pytest.mark.parametrize("name", ["split", "bits", "fold_in", "bits_at",
+                                  "threefry2x32"])
+def test_meta_tensors_raise(name):
+    k = prng.key(5).to("meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        _prng_calls(k)[name]()

@@ -54,20 +54,21 @@ def _grid():
 
 
 def test_gate_admits_what_jax_admits():
-    # Every shape JAX's VMEM check admits, the port admits at a portable
-    # cluster size, but at d = 8 with bs <= 64 past C = 8's reach: there the
-    # block fits only at C = 16, which is non-portable and never the gate's
-    # basis (a stated divergence, ROADMAP Queue 3).  num_batches only
-    # matters to JAX under MFCD_PALLAS_MAX_ROWS.
-    gaps = []
+    # Every shape JAX's VMEM check admits, the port admits, the d = 8,
+    # bs <= 64 shapes past C = 8's reach included: the gate's basis takes
+    # C = 16, where their block fits.  num_batches only matters to JAX
+    # under MFCD_PALLAS_MAX_ROWS.
+    gaps, at16 = [], []
     for n, m, d, bs in _grid():
         nb = max(1, int(0.8 * n * m * 0.02 / 2) // bs)
-        if pallas_epoch_supported(n, m, d, nb, bs) and \
-                not K.epoch_kernel_supported(n, m, d, bs):
-            gaps.append((n, m, d, bs))
-            assert d == 8 and bs <= 64, (n, m, d, bs)
-            assert K.epoch_smem_bytes(n, m, d, bs, 16) <= K.SMEM_PER_BLOCK
-    assert len(gaps) == 18
+        if pallas_epoch_supported(n, m, d, nb, bs):
+            if not K.epoch_kernel_supported(n, m, d, bs):
+                gaps.append((n, m, d, bs))
+            elif K.min_cluster(n, m, d, bs) == 16:
+                at16.append((n, m, d, bs))
+                assert d == 8 and bs <= 64, (n, m, d, bs)
+    assert gaps == []
+    assert len(at16) == 18
     for d in (2, 4):
         for n in (3559, 3560, 5000, 7168):
             assert pallas_epoch_supported(n, n, d, 1, 64)
@@ -79,9 +80,9 @@ def test_gate_admits_what_jax_admits():
 @pytest.mark.parametrize("d", GRID_D)
 @pytest.mark.parametrize("bs", GRID_BS)
 def test_min_cluster_is_the_smem_arithmetic(d, bs):
-    for n in GRID_ROWS + (22_776, 22_777, 30_000):
+    for n in GRID_ROWS + (22_776, 22_777, 30_000, 45_552, 45_553):
         for m in (20, n):
-            fits = [c for c in (1, 2, 4, 8)
+            fits = [c for c in (1, 2, 4, 8, 16)
                     if _smem(n, m, d, bs, c) <= 232_448]
             want = fits[0] if fits else None
             assert K.min_cluster(n, m, d, bs) == want
@@ -94,14 +95,15 @@ def test_min_cluster_is_the_smem_arithmetic(d, bs):
 def test_min_cluster_at_d2_bs64():
     # The issue's table: the smallest C that fits, n = m, d = 2, bs = 64.
     for n, c in ((1000, 1), (3559, 1), (3560, 2), (5000, 2), (7168, 4),
-                 (10_000, 4), (22_776, 8), (22_777, None), (30_000, None)):
+                 (10_000, 4), (22_776, 8), (22_777, 16), (30_000, 16),
+                 (45_552, 16), (45_553, None)):
         assert K.min_cluster(n, n, 2, 64) == c, n
     assert K.epoch_smem_bytes(10_000, 10_000, 2, 64, 2) == 404_616
     assert K.epoch_smem_bytes(10_000, 10_000, 2, 64, 4) == 204_616
 
 
 @pytest.mark.parametrize("card", list(_OCCUPANCY))
-@pytest.mark.parametrize("floor", [1, 2, 4, 8])
+@pytest.mark.parametrize("floor", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("runs", [1, 4, 8, 16, 17, 34, 120, 310])
 def test_choose_cluster_at_a_floor(runs, floor, card):
     table = _OCCUPANCY[card]
@@ -162,7 +164,7 @@ def test_forced_shape_below_the_floor_raises():
         K.check_launch_shape("t", c, floor, smem)
     with pytest.raises(ValueError, match="cluster=3"):
         K.check_launch_shape("t", 3, floor, smem)
-    with pytest.raises(ValueError, match="even at C = 8"):
+    with pytest.raises(ValueError, match="even at C = 16"):
         K.check_launch_shape("t", None, None, smem)
 
 
@@ -182,8 +184,20 @@ def test_cluster_size_takes_the_floor(monkeypatch, capsys):
     assert K.cluster_size(34, 10_000, 10_000, 2, 64, "cuda:0") == 4
     assert "33 runs resident, 2 waves" in capsys.readouterr().out
     assert min(asked) >= 4
-    with pytest.raises(ValueError, match="even at C = 8"):
+    with pytest.raises(ValueError, match="even at C = 16"):
+        K.cluster_size(1, 45_553, 45_553, 2, 64, "cuda:0")
+    # A floor of 16 on a card that holds no 16-block cluster raises, with
+    # the shape and C = 16 in the message: no autograd, no smaller C.
+    with pytest.raises(ValueError, match=r"n=30000, m=30000, d=2, bs=64, "
+                       r"smallest C 16: the card holds no cluster of any "
+                       r"size from C = 16 up"):
         K.cluster_size(1, 30_000, 30_000, 2, 64, "cuda:0")
+    assert K.cluster_size(1, 30_000, 30_000, 2, 64, "cuda:0",
+                          floor=8) == 8
+    monkeypatch.setattr(K, "_printed_clusters", set())
+    table = _OCCUPANCY["h100-like"]  # the occupancy stub reads it
+    assert K.cluster_size(1, 7168, 7168, 8, 64, "cuda:0") == 16
+    assert "smallest C 16" in capsys.readouterr().out
 
 
 def test_engine_picks_the_kernel_from_the_shape(capsys, monkeypatch):
@@ -194,8 +208,11 @@ def test_engine_picks_the_kernel_from_the_shape(capsys, monkeypatch):
         assert tengine.default_use_kernel(cfg, "cuda")
         assert f"kernel fits: True, smallest C {c}" in capsys.readouterr().out
         assert not tengine.default_use_kernel(cfg, "cpu")
-    assert not tengine.default_use_kernel(
+    assert tengine.default_use_kernel(
         tconfig.RunConfig(n=30_000, m=30_000, d=2), "cuda")
+    assert "kernel fits: True, smallest C 16" in capsys.readouterr().out
+    assert not tengine.default_use_kernel(
+        tconfig.RunConfig(n=45_553, m=45_553, d=2), "cuda")
 
 
 def _flat(v):

@@ -8,6 +8,7 @@ import torch
 
 from mfcd_tpu.ops import shuffle as J
 from mfcd_tpu_torch.convert import key_from_jax
+from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.ops import shuffle as T
 
 torch.set_num_threads(1)
@@ -85,7 +86,7 @@ def test_mix_stream_bit_equal(period, wide):
         js = jax.vmap(lambda a, kk, c: J.mix_stream(
             a, kk, e, c, k_bits, period=period, tile_w=tile_w))(
                 js, jk, jnp.asarray(counts))
-        ts = T.mix_stream(ts, T.prng.fold_in(tkeys, e), e,
+        ts = T.mix_stream(ts, tkeys, e,
                           torch.from_numpy(counts), k_bits, period=period,
                           tile_w=tile_w)
         for a, b in zip(js, ts):
@@ -101,3 +102,196 @@ def test_stream_tile_width_and_period(monkeypatch):
         assert T.stream_tile_width(bs) == J.stream_tile_width(bs)
     monkeypatch.setenv("MFCD_RESHUFFLE_PERIOD", "2")
     assert T.default_reshuffle_period() == 2
+
+
+# The rewritten plain mix_stream (S2's composed source map, one gather per
+# array) against JAX over the whole [R, S] arrays, pad slots included, for
+# epochs 0 to 2 * period (fresh and cheap epochs), per-run counts with one
+# of 2^(k-1) + 1 (the longest walks), tile widths none (bs = 4) and 8 to
+# 128, and packs of 1, 2 and 4 arrays.
+PERIOD = 4
+STREAM_COUNTS = np.array([2049, 4096, 3001], np.int32)   # k = 12, S = 4096
+
+
+def _jax_epoch(period, tile_w, k_bits):
+    def one(arrs, kk, c, e):
+        return J.mix_stream(arrs, jax.random.fold_in(kk, e), e, c, k_bits,
+                            period=period, tile_w=tile_w)
+    return jax.jit(jax.vmap(one, in_axes=(0, 0, 0, None)))
+
+
+@pytest.mark.parametrize("arrays", [1, 2, 4])
+@pytest.mark.parametrize("tile_w", [None, 8, 16, 32, 64, 128])
+def test_mix_stream_whole_arrays_bit_equal(tile_w, arrays):
+    s_len, k_bits, r = 4096, 12, len(STREAM_COUNTS)
+    g = np.random.default_rng(tile_w or 4)
+    arrs = [g.integers(-2**31, 2**31, (r, s_len)).astype(np.int32)
+            for _ in range(arrays - 1)]
+    arrs.append(g.standard_normal((r, s_len)).astype(np.float32))
+    keys = jax.random.split(jax.random.key(11), r)
+    tkeys = key_from_jax(jax.random.key_data(keys))
+    step = _jax_epoch(PERIOD, tile_w, k_bits)
+    js = tuple(jnp.asarray(a) for a in arrs)
+    ts = tuple(torch.from_numpy(a.copy()) for a in arrs)
+    for e in range(2 * PERIOD + 1):
+        js = step(js, keys, jnp.asarray(STREAM_COUNTS), e)
+        ts = T.mix_stream(ts, tkeys, e, torch.from_numpy(STREAM_COUNTS),
+                          k_bits, period=PERIOD, tile_w=tile_w)
+        for a, b in zip(js, ts):
+            assert b.numpy().dtype == np.asarray(a).dtype
+            assert (np.asarray(a).view(np.int32)
+                    == b.numpy().view(np.int32)).all(), (tile_w, e)
+
+
+# K = 50's width without its size: k = 22, a count of 4,000,000, a sample of
+# 4,096 slots (the map is pointwise), each walk mode.
+WIDE_SAMPLE = np.sort(np.random.default_rng(22).choice(
+    1 << 22, 4096, replace=False)).astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["capped", "exact", "inverse"])
+def test_prp_at_k22_on_a_sample_bit_equal(mode):
+    count, k_bits = 4_000_000, 22
+    fn = {"capped": "epoch_permutation", "exact": "exact_prefix_permutation",
+          "inverse": "exact_prefix_permutation_inverse"}[mode]
+    want = np.asarray(getattr(J, fn)(KEY, jnp.asarray(WIDE_SAMPLE), count,
+                                     k_bits))
+    got = getattr(T, fn)(TKEY, torch.from_numpy(WIDE_SAMPLE), count, k_bits)
+    assert got.dtype == torch.int32 and (want == got.numpy()).all()
+    if mode != "capped":
+        inside = WIDE_SAMPLE < count
+        assert (got.numpy()[inside] < count).all()
+
+
+def _shuffle_calls(dev):
+    key = TKEY.to(dev)
+    slots = torch.arange(64, device=dev)
+    arrs = (torch.arange(2 * 64, dtype=torch.int32,
+                         device=dev).reshape(2, 64),)
+    keys = torch.stack([key, key])
+    return {
+        "epoch_permutation": lambda: T.epoch_permutation(key, slots, 50, 6),
+        "exact_prefix_permutation":
+            lambda: T.exact_prefix_permutation(key, slots, 50, 6),
+        "exact_prefix_permutation_inverse":
+            lambda: T.exact_prefix_permutation_inverse(key, slots, 50, 6),
+        "mix_stream": lambda: T.mix_stream(
+            arrs, keys, 1, torch.tensor([50, 60], device=dev), 6,
+            period=4, tile_w=8),
+    }
+
+
+SHUFFLE_FNS = ["epoch_permutation", "exact_prefix_permutation",
+               "exact_prefix_permutation_inverse", "mix_stream"]
+
+
+@pytest.mark.parametrize("name", SHUFFLE_FNS)
+def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
+    def no_launch(*a, **kw):
+        raise AssertionError("a CPU tensor reached the kernel")
+
+    monkeypatch.setattr(T, "_prp_launch", no_launch)
+    monkeypatch.setattr(T, "_mix_stream_launch", no_launch)
+    before = (T.PRP_LAUNCHES, T.SHUFFLE_LAUNCHES)
+    out = _shuffle_calls("cpu")[name]()
+    assert (T.PRP_LAUNCHES, T.SHUFFLE_LAUNCHES) == before
+    if name == "mix_stream":
+        assert sorted(out[0][0, :50].tolist()) == list(range(50))
+    elif name != "exact_prefix_permutation_inverse":
+        assert sorted(out[:50].tolist()) == list(range(50))
+
+
+@pytest.mark.parametrize("name", SHUFFLE_FNS)
+def test_plain_versions_use_only_the_plain_threefry(name, monkeypatch):
+    """The ``*_reference`` functions derive their keys and constants with
+    prng's plain threefry, so on the card they launch no kernel and stay
+    independent of ``threefry.cuh``: prng's dispatching entries refused,
+    each gives the bits it gives with them."""
+    want = _shuffle_calls("cpu")[name]()
+
+    def refused(*a, **kw):
+        raise AssertionError("a plain version reached prng's dispatch")
+
+    for fn in ("threefry2x32", "fold_in", "split", "bits", "bits_at"):
+        monkeypatch.setattr(prng, fn, refused)
+    for fn in SHUFFLE_FNS:
+        monkeypatch.setattr(T, fn, getattr(T, fn + "_reference"))
+    got = _shuffle_calls("cpu")[name]()
+    for a, b in zip(want if name == "mix_stream" else (want,),
+                    got if name == "mix_stream" else (got,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", SHUFFLE_FNS)
+def test_meta_tensors_raise(name):
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        _shuffle_calls("meta")[name]()
+
+
+class _FakeLaunch:
+    """Stands in for the built library and the stream, on CPU tensors:
+    records each entry's arguments (the wrappers' shape logic runs here;
+    the kernels only on the card)."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(T, "_library", lambda: self)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda dev=None: type("S", (), {"cuda_stream": 0}))
+
+    def mfcd_prp(self, *args):
+        self.calls.append(("prp",) + args)
+        return 0
+
+    def mfcd_mix_stream(self, *args):
+        self.calls.append(("mix",) + args)
+        return 0
+
+
+@pytest.mark.parametrize("case", ["one-key", "shared-slots", "row-slots"])
+def test_prp_wrapper_shapes_its_launch(case, monkeypatch):
+    # (keys, slots, count) -> (rows, n, slot row stride) handed to S1:
+    # slots that broadcast over the keys are passed once (stride 0).
+    fake = _FakeLaunch(monkeypatch)
+    keys = torch.stack([TKEY, TKEY ^ 1, TKEY ^ 2])
+    args, want = {
+        "one-key": ((TKEY, torch.arange(40), 30), (1, 40, 0, (40,))),
+        "shared-slots": ((keys, torch.arange(40), torch.tensor([30, 31, 32])),
+                         (3, 40, 0, (3, 40))),
+        "row-slots": ((keys, torch.arange(120).reshape(3, 40), 30),
+                      (3, 40, 40, (3, 40))),
+    }[case]
+    before = T.PRP_LAUNCHES
+    out = T._prp_launch("t", *args, 6, T._EXACT)
+    (_, _, _, _, slot_row, _, rows, n, mode, k_bits, _), = fake.calls
+    assert (rows, n, slot_row, tuple(out.shape)) == want
+    assert (mode, k_bits, out.dtype) == (T._EXACT, 6, torch.int32)
+    assert T.PRP_LAUNCHES == before + 1
+
+
+def test_mix_stream_wrapper_rejects_what_s2_does_not_take(monkeypatch):
+    fake = _FakeLaunch(monkeypatch)
+    keys = torch.stack([TKEY, TKEY ^ 1])
+    a = torch.zeros((2, 64), dtype=torch.int32)
+    count = torch.tensor([50, 60], dtype=torch.int32)
+    call = lambda arrs, k=keys, c=count, kb=6: T._mix_stream_launch(
+        arrs, k, 1, c, kb, 4, 8)
+    for bad, match in (((a, a, a), "1, 2 or 4"),
+                       ((a.to(torch.int64),), "32-bit"),
+                       ((a.t().contiguous().t(),), "32-bit"),
+                       ((a, a[:1]), "shapes")):
+        with pytest.raises(ValueError, match=match):
+            call(bad)
+    with pytest.raises(ValueError, match="key"):
+        call((a,), k=keys[:1])
+    with pytest.raises(ValueError, match="count"):
+        call((a,), c=count[:1])
+    with pytest.raises(ValueError, match="k_bits"):
+        call((a,), kb=33)
+    assert fake.calls == []
+    outs = call((a, a.float()))
+    (_, _, _, _, _, arrays, rows, s_len, epoch, period, k_bits, tile_w,
+     _), = fake.calls
+    assert (arrays, rows, s_len, epoch, period, k_bits, tile_w) == (
+        2, 2, 64, 1, 4, 6, 8)
+    assert [o.dtype for o in outs] == [torch.int32, torch.float32]
