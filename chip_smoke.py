@@ -157,13 +157,20 @@ Phases, each of which raises on failure (nothing is caught and continued):
    s/run by K; then soft K = 10 at 2 epochs
    on the card against the CPU, within [5]'s bound;
 14. the epoch shuffle and threefry: (a) at each shape of
-   ``SHUFFLE_CASES`` (the canonical run, the bench bucket, the bench's
-   sweep chunk, hard K = 10 and 50, scale_demo's n = m = 10,000), the
-   fused epoch shuffle S2 over a fresh and a cheap epoch, the keyed PRP S1
-   in its three walk modes and threefry T1's two entries, each bit-equal
-   to its plain version on the card, with its device ms (CUDA events over
-   calls queued behind a spin kernel, so the host's issue is not in them)
-   and its host issue ms beside the plain version's and the bound; (b) the
+   ``ab_shuffle_kernels.SHUFFLE_CASES`` (the canonical run, the bench
+   bucket, the bench's sweep chunk, hard K = 10 and 50, scale_demo's
+   n = m = 10,000), the fused epoch shuffle S2 over a fresh and a cheap
+   epoch (from the epoch's folded keys, as the trainer calls it), the
+   keyed PRP S1 in its three walk modes and threefry T1's ``bits``,
+   ``fold_in`` and ``split``, each bit-equal to its plain version on the
+   card, S2 and T1 also to the
+   earlier design (one slot, one hash a thread) built from
+   ``mfcd_tpu_torch/scripts/ab_baseline/`` and timed in turns against it;
+   each with its device ms (CUDA events over calls queued behind a spin
+   kernel, so the host's issue is not in them) and its host issue ms
+   beside the plain version's and the bound (bytes at the memory rate,
+   32-bit integer operations at PEAK_INT32_OPS, from the SM count and the
+   top SM clock that [1] prints), and the launches of [4]'s call; (b) the
    canonical ``run_config`` with ``train_runs_kernel`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
    trainer's epoch loop), 30 S2 and 30 K1 launches a call, s/run, and a
@@ -193,6 +200,18 @@ CANON = dict(n=1000, m=1000, d=2, p=0.2, s=[5.0], lr=1e-3,
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# 32-bit integer add, logic, shift and funnel shift a clock per SM on
+# compute capability 9.0 (the CUDA C++ Programming Guide's arithmetic
+# instruction throughput table): a quarter of the float32 rate's 128 FMAs
+# counted as 2.  PEAK_INT32_OPS is this card's rate, SMs x INT32_PER_SM x
+# the top SM clock, set by ``main`` from the card (``card_int_rate``).
+# Logic, shifts and compares issue on the integer ALU pipe alone; adds and
+# multiplies the compiler also issues as IMAD on the FMA pipe, 64 a clock
+# more (``cuobjdump -sass`` of T1 shows its adds as IMADs).  So
+# the operations bound counts the ALU-only operations at this rate: they
+# outnumber half of all the integer operations in every count below.
+INT32_PER_SM = 64
+PEAK_INT32_OPS = None
 # Kernel-vs-plain bound, per tensor: max|diff| <= KERNEL_RTOL * max|ref| +
 # KERNEL_ATOL.  The orders of the gradient sums (index_add_ on the card adds
 # with atomics) and of the loss reduction differ; every other operation
@@ -296,28 +315,17 @@ K_CARD_CPU = dict(n=1000, m=1000, d=2, p=0.2, s=[5.0], K=10,
 ACC_MIN = 0.6
 # [14] The epoch shuffle and threefry on the card: S1, S2 and T1 against
 # their plain versions (integer maps: bit-equal) at the main path's shapes,
-# (label, R, S, count, k_bits, pack arrays): the canonical run, the bench
-# bucket, the bench's sweep chunk, hard K = 10 and 50, and scale_demo's
-# n = m = 10,000 (pack "none").  S2 at bs = 64's tile width, over one fresh
-# and one cheap epoch; its ms an epoch is the period's mean (1 fresh, 3
-# cheap).
-SHUFFLE_CASES = (("canonical", 4, 131_072, 80_000, 17, 1),
-                 ("bench bucket", 8, 131_072, 80_000, 17, 1),
-                 ("sweep", MID_R, 131_072, 80_000, 17, 1),
-                 ("hard K=10", 2, 1 << 20, 800_000, 20, 1),
-                 ("hard K=50", 2, 1 << 22, 4_000_000, 22, 1),
-                 ("scale", 1, 800_000, 800_000, 20, 4))
-SHUFFLE_TILE, SHUFFLE_PERIOD = 64, 4
-# Integer operations a step of the keyed walk (3 rounds of multiply, mask,
-# shift, xor, add, mask) and its test, and a threefry2x32 hash (20 rounds
-# of add, rotate, xor, 5 key injections), for the operations bound, over
-# the H100's float32 non-tensor rate: its integer rate is no higher, so the
-# bound stays a lower bound.
-MIX_OPS, HASH_OPS, SLOT_OPS = 20, 80, 10
-# Cycles a second the spin kernel of ``queue_ms`` counts at most (the
-# H100's top SM clock, 1.98 GHz, rounded up): its spin lasts at least
-# cycles / SPIN_HZ seconds.
-SPIN_HZ = 2.0e9
+# ``SHUFFLE_CASES`` of mfcd_tpu_torch/scripts/ab_shuffle_kernels.py (the
+# canonical run, the bench bucket, the bench's sweep chunk, hard K = 10 and
+# 50, and scale_demo's n = m = 10,000); S2 at bs = 64's tile width, over
+# one fresh and one cheap epoch; its ms an epoch is the period's mean (1
+# fresh, 3 cheap).
+# ALU-only 32-bit integer operations, for the operations bound at
+# PEAK_INT32_OPS: a step of the keyed walk (3 rounds of mask, shift, xor,
+# mask, and the test's compare and select; its 3 multiplies and 3 adds can
+# issue as IMAD), a threefry2x32 hash (20 rotates and 20 xors; its 30 adds
+# can issue as IMAD) and a slot's rotation (a compare and a select).
+MIX_OPS, HASH_OPS, SLOT_OPS = 14, 40, 2
 
 
 def log(msg: str) -> None:
@@ -456,11 +464,35 @@ def time_ms(fn, warmup: int, reps: int) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, flops: float):
+def peak_int32_ops(sms: int, clock_mhz: float) -> float:
+    """32-bit integer operations a second: ``sms`` SMs at ``clock_mhz``."""
+    return sms * INT32_PER_SM * clock_mhz * 1e6
+
+
+def card_int_rate():
+    """(SM count, top SM clock in MHz) of card 0, from
+    ``torch.cuda.get_device_properties`` and ``nvidia-smi
+    --query-gpu=clocks.max.sm``."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return (torch.cuda.get_device_properties(0).multi_processor_count,
+            float(out.stdout.split()[0]))
+
+
+def bound_ms(nbytes: float, flops: float = 0.0, int_ops: float = 0.0):
     """(least ms, "bytes" or "operations"): the larger of the bytes over the
-    H100's memory rate and the operations over its float32 rate."""
+    H100's memory rate and the operations, float32 ``flops`` at its float32
+    rate plus 32-bit ``int_ops`` at PEAK_INT32_OPS."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
+    if int_ops:
+        if not PEAK_INT32_OPS:
+            fail("bound_ms: integer operations before PEAK_INT32_OPS is set")
+        t_ops += int_ops / PEAK_INT32_OPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -2687,46 +2719,6 @@ def k_axis_phase(smi):
     return dict(launches=launches, s_per_run=s_per_run, wall=wall)
 
 
-def queue_ms(fn, reps: int = 20, rounds: int = 5):
-    """(device ms, host ms) of one call of ``fn``: medians over ``rounds``
-    windows of ``reps`` back-to-back calls, after one warm-up call.  Each
-    window is queued behind a spin kernel (``torch.cuda._sleep``) that
-    outlasts the host's issue of all ``reps`` calls, so the card runs
-    them back to back and the CUDA-event window holds their device time
-    alone; the host's clock over the issue gives the host ms.  Fails if
-    the card caught up with the host (a host sync in ``fn``) even behind
-    a spin 64 times the host's issue time."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    cycles = int(4 * SPIN_HZ * max(time.perf_counter() - t0, 1e-3))
-    torch.cuda.synchronize()
-    dev, host = [], []
-    for _ in range(rounds):
-        for _ in range(4):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(cycles)
-            start.record()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            issued = time.perf_counter() - t0
-            ahead = not start.query()   # the card still spinning
-            stop.record()
-            stop.synchronize()
-            if ahead:
-                break
-            cycles *= 4
-        else:
-            fail("queue_ms: the card caught up with the host's issue")
-        dev.append(start.elapsed_time(stop) / reps)
-        host.append(1e3 * issued / reps)
-    return float(np.median(dev)), float(np.median(host))
-
-
 def walk_steps(key, slots, count, k_bits, mode="capped") -> torch.Tensor:
     """The mixing steps each keyed walk of ``slots`` takes under ``key``
     and ``count`` (the first mix included), as the plain walk of ``mode``
@@ -2754,71 +2746,102 @@ def walk_steps(key, slots, count, k_bits, mode="capped") -> torch.Tensor:
 
 
 def stream_ops(keys, epoch, counts, s_len, k_bits) -> int:
-    """Integer operations one S2 epoch needs on these inputs: the walks of
-    a fresh epoch over every slot, or of a cheap one over the full tiles
-    (each tile's walk taken by its tile_w slots), plus the per-slot address
-    arithmetic, plus the keys' hashes (11 a run)."""
+    """32-bit integer operations one S2 epoch needs on these inputs: the
+    walks of a fresh epoch over every slot, or of a cheap one over the full
+    tiles (one walk a tile), plus each slot's rotation test, plus the
+    keys' hashes (11 a run)."""
     from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.scripts.ab_shuffle_kernels import PERIOD, TILE
 
     r = keys.shape[0]
     k_prp, _, k_tile = prng.split_reference(
         prng.fold_in_reference(keys, epoch), 3).unbind(-2)
     slots = torch.arange(s_len, device=keys.device)
-    if epoch % SHUFFLE_PERIOD == 0:
+    if epoch % PERIOD == 0:
         steps = int(walk_steps(k_prp, slots, counts, k_bits).sum())
     else:
-        t_bits = max(k_bits - SHUFFLE_TILE.bit_length() + 1, 1)
-        full = counts.to(torch.int64).unsqueeze(-1) // SHUFFLE_TILE
-        tiles = torch.arange(s_len // SHUFFLE_TILE, device=keys.device)
+        t_bits = max(k_bits - TILE.bit_length() + 1, 1)
+        full = counts.to(torch.int64).unsqueeze(-1) // TILE
+        tiles = torch.arange(s_len // TILE, device=keys.device)
         walked = walk_steps(k_tile, tiles, torch.clamp(full[:, 0], min=1),
                             t_bits)
-        steps = SHUFFLE_TILE * int((walked * (tiles < full)).sum())
+        steps = int((walked * (tiles < full)).sum())
+    return stream_int_ops(steps, r, s_len)
+
+
+def stream_int_ops(steps: int, r: int, s_len: int) -> int:
+    """S2's integer operations from its walks' ``steps``, over ``r`` runs
+    of ``s_len`` slots."""
     return MIX_OPS * steps + SLOT_OPS * r * s_len + HASH_OPS * 11 * r
 
 
-def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi):
-    """[14a] One shape: S2 (fresh and cheap epochs), S1 in its three modes
-    and T1's two entries against their plain versions, bit for bit; each
-    one's ms beside the plain version's and the bound.  Returns the
-    entry."""
+def stream_bytes(r: int, s_len: int, arrays: int) -> int:
+    """S2's bytes: every word of every array read and written once, and a
+    key and a count a run."""
+    return 8 * r * s_len * arrays + 20 * r
+
+
+def prp_bytes(r: int, s_len: int) -> int:
+    """S1's bytes: one shared row of int64 slots read once, R rows of int32
+    written, a key and a count a row."""
+    return 8 * s_len + 4 * r * s_len + 20 * r
+
+
+def threefry_bound(n_out: int, words_out: int, r: int):
+    """T1's bound: ``words_out`` int64 words written and R keys read,
+    ``n_out`` hashes at the integer rate."""
+    return bound_ms(8 * words_out + 16 * r, int_ops=HASH_OPS * n_out)
+
+
+def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi, other):
+    """[14a] One shape: S2 (a fresh and a cheap epoch, from the epoch's
+    folded keys as the trainer calls it) and T1 (``bits`` over [R, S],
+    ``fold_in`` of R keys by an integer, ``split`` of R keys into 9)
+    bit-equal to their plain versions and to the earlier design's build
+    (``other``, ``ab_shuffle_kernels.Baseline``), timed in turns against
+    it; S1 in its three modes against its plain version.  Each one's
+    device and host issue ms beside the plain version's and the bound at
+    PEAK_INT32_OPS.  Returns the entry."""
     from mfcd_tpu_torch.core import prng
     from mfcd_tpu_torch.ops import shuffle
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
 
-    g = torch.Generator(device=dev).manual_seed(s_len + r)
-    keys = prng.split(prng.key(r), r).to(dev)
-    counts = torch.clamp(torch.tensor([count - 13 * i for i in range(r)],
-                                      dtype=torch.int32, device=dev), min=1)
-    words = tuple(torch.randint(-2**31, 2**31 - 1, (r, s_len),
-                                dtype=torch.int32, device=dev, generator=g)
-                  for _ in range(arrays))
+    keys, counts, words = ab.case_inputs(r, s_len, count, arrays, dev)
+    calls = ab.case_calls(other, keys, counts, words, k_bits)
     same = lambda a, b: a.shape == b.shape and bool(
         torch.equal(a.view(torch.int32), b.view(torch.int32)))
-    kw = dict(period=SHUFFLE_PERIOD, tile_w=SHUFFLE_TILE)
+    kw = dict(period=ab.PERIOD, tile_w=ab.TILE)
     entry = dict(label=label, r=r, s=s_len, count=count, k_bits=k_bits,
                  arrays=arrays)
+
+    def timed(name, plain, bound):
+        got, want = calls[name][0](), plain()
+        torch.cuda.synchronize()
+        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+        if not all(same(a, b) for a, b in pairs):
+            fail(f"[14a] {label}: {name} differs from its plain version")
+        t = ab.in_turns(*calls[name])
+        return dict(ms=t["this_ms"], host_ms=t["this_host_ms"],
+                    baseline_ms=t["other_ms"],
+                    baseline_host_ms=t["other_host_ms"], ratio=t["ratio"],
+                    host_ratio=t["host_ratio"],
+                    plain_ms=time_ms(plain, 1, 3), bound_ms=bound[0],
+                    bound_by=bound[1])
+
     # S2: epoch 0 is a fresh PRP gather, epoch 1 a cheap one.
     s2 = {}
     for epoch, kind in ((0, "fresh"), (1, "cheap")):
-        call = lambda: shuffle.mix_stream(words, keys, epoch, counts,
-                                          k_bits, **kw)
-        plain = lambda: shuffle.mix_stream_reference(words, keys, epoch,
-                                                     counts, k_bits, **kw)
-        got, want = call(), plain()
-        torch.cuda.synchronize()
-        if not all(same(a, b) for a, b in zip(got, want)):
-            fail(f"[14a] {label}: S2 {kind} epoch differs from its plain "
-                 f"version")
-        nbytes = 8 * r * s_len * arrays + 20 * r
-        bound, by = bound_ms(nbytes, stream_ops(keys, epoch, counts, s_len,
-                                                k_bits))
-        dev_ms, host_ms = queue_ms(call)
-        s2[kind] = dict(ms=dev_ms, host_ms=host_ms,
-                        plain_ms=time_ms(plain, 1, 3), bound_ms=bound,
-                        bound_by=by)
+        s2[kind] = timed(
+            f"S2 {kind}",
+            lambda epoch=epoch: shuffle.mix_stream_reference(
+                words, keys, epoch, counts, k_bits, **kw),
+            bound_ms(stream_bytes(r, s_len, arrays), int_ops=stream_ops(
+                keys, epoch, counts, s_len, k_bits)))
     mean = lambda k: (s2["fresh"][k] + 3 * s2["cheap"][k]) / 4
     entry["mix_stream"] = dict(
-        s2, ms=mean("ms"), host_ms=mean("host_ms"),
-        plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+        s2, **{k: mean(k) for k in ("ms", "host_ms", "baseline_ms",
+                                    "baseline_host_ms", "plain_ms",
+                                    "bound_ms")},
         bound_by=s2["cheap"]["bound_by"])
     # S1 over one shared row of the stream's slots (int64, read once), each
     # mode: R rows of int32 out, a key and a count a row.
@@ -2835,51 +2858,41 @@ def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi):
         if not same(got, want):
             fail(f"[14a] {label}: S1 {mode} differs from its plain version")
         steps = int(walk_steps(keys, slots, counts, k_bits, mode).sum())
-        bound, by = bound_ms(8 * s_len + 4 * r * s_len + 20 * r,
-                             MIX_OPS * steps + SLOT_OPS * r * s_len)
-        dev_ms, host_ms = queue_ms(call)
+        bound, by = bound_ms(prp_bytes(r, s_len), int_ops=(
+            MIX_OPS * steps + SLOT_OPS * r * s_len))
+        dev_ms, host_ms = ab.queue_ms(call)
         s1[mode] = dict(ms=dev_ms, host_ms=host_ms,
                         plain_ms=time_ms(plain, 1, 3), bound_ms=bound,
                         bound_by=by)
     entry["shuffle_prp"] = s1
-    # T1: bits over [R, S] (the counter entry) and fold_in over R keys (the
-    # hash entry), its datum a tensor on the card.
-    datum = torch.full((), 7, dtype=torch.int64, device=dev)
-    t1 = {}
-    for name, call, plain, n_out in (
-            ("bits", lambda: prng.bits(keys, (s_len,)),
-             lambda: prng.bits_reference(keys, (s_len,)), r * s_len),
-            ("fold_in", lambda: prng.fold_in(keys, datum),
-             lambda: prng.fold_in_reference(keys, datum), r)):
-        got, want = call(), plain()
-        torch.cuda.synchronize()
-        if not same(got, want):
-            fail(f"[14a] {label}: T1 {name} differs from its plain version")
-        words_out = n_out * (2 if name == "fold_in" else 1)
-        bound, by = bound_ms(8 * words_out + 16 * r, HASH_OPS * n_out)
-        dev_ms, host_ms = queue_ms(call)
-        t1[name] = dict(ms=dev_ms, host_ms=host_ms,
-                        plain_ms=time_ms(plain, 1, 3), bound_ms=bound,
-                        bound_by=by)
-    entry["threefry2x32"] = t1
-    ms = entry["mix_stream"]
+    # T1: the counter entry's bits and split, the hash entry's fold_in.
+    entry["threefry2x32"] = {
+        "bits": timed("T1 bits", lambda: prng.bits_reference(keys, (s_len,)),
+                      threefry_bound(r * s_len, r * s_len, r)),
+        "fold_in": timed("T1 fold_in",
+                         lambda: prng.fold_in_reference(keys, 7),
+                         threefry_bound(r, 2 * r, r)),
+        "split": timed("T1 split", lambda: prng.split_reference(keys, 9),
+                       threefry_bound(9 * r, 18 * r, r)),
+    }
+    row = lambda v: (f"{v['ms']:.4f} ({v['host_ms']:.4f}) against "
+                     f"{v['baseline_ms']:.4f} ({v['baseline_host_ms']:.4f}); "
+                     f"plain {v['plain_ms']:.2f}, bound {v['bound_ms']:.6f} "
+                     f"{v['bound_by']}")
     log(f"[14a] {label} (R={r}, S={s_len}, count {count}, k={k_bits}, "
-        f"{arrays} array{'s' if arrays > 1 else ''}): S2, S1 (3 modes), T1 "
-        f"(bits, fold_in) bit-equal to their plain versions; device ms a "
-        f"call (host issue ms): S2 {s2['fresh']['ms']:.4f} "
-        f"({s2['fresh']['host_ms']:.4f}) fresh / {s2['cheap']['ms']:.4f} "
-        f"({s2['cheap']['host_ms']:.4f}) cheap (plain "
-        f"{s2['fresh']['plain_ms']:.2f} / {s2['cheap']['plain_ms']:.2f}, "
-        f"bound {s2['fresh']['bound_ms']:.6f} / "
-        f"{s2['cheap']['bound_ms']:.6f}, {s2['cheap']['bound_by']}), period "
-        f"mean {ms['ms']:.4f}; S1 "
-        + ", ".join(f"{k} {v['ms']:.4f} ({v['host_ms']:.4f}; plain "
-                    f"{v['plain_ms']:.2f}, bound {v['bound_ms']:.6f} "
-                    f"{v['bound_by']})" for k, v in s1.items())
-        + "; T1 " + ", ".join(f"{k} {v['ms']:.4f} ({v['host_ms']:.4f}; plain "
-                              f"{v['plain_ms']:.2f}, bound "
+        f"{arrays} array{'s' if arrays > 1 else ''}): S2, T1 bit-equal to "
+        f"their plain versions and the earlier build, S1 (3 modes) to its "
+        f"plain version; device ms a call (host issue ms), this build "
+        f"against the earlier: S2 fresh {row(s2['fresh'])}; S2 cheap "
+        f"{row(s2['cheap'])}; period mean "
+        f"{entry['mix_stream']['ms']:.4f} against "
+        f"{entry['mix_stream']['baseline_ms']:.4f}; "
+        + "; ".join(f"T1 {k} {row(v)}"
+                    for k, v in entry["threefry2x32"].items())
+        + "; S1 " + ", ".join(f"{k} {v['ms']:.4f} ({v['host_ms']:.4f}; "
+                              f"plain {v['plain_ms']:.2f}, bound "
                               f"{v['bound_ms']:.6f} {v['bound_by']})"
-                              for k, v in t1.items()) + f" ms; {smi}")
+                              for k, v in s1.items()) + f" ms; {smi}")
     return entry
 
 
@@ -2947,11 +2960,21 @@ def strict_loop_phase(smi):
     return out
 
 
-def shuffle_phase(dev, smi):
-    """[14] S1, S2 and T1 at every shape of ``SHUFFLE_CASES``, then the
-    canonical epoch loop with no host sync.  Returns (cases, loop)."""
+def shuffle_phase(dev, smi, main_launches):
+    """[14] S1, S2 and T1 at every shape of ``ab.SHUFFLE_CASES``, S2 and T1
+    in turns against the earlier design built from
+    ``scripts/ab_baseline/``, then the canonical epoch loop with no host
+    sync.  Returns (cases, loop)."""
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
+
     t0 = time.perf_counter()
-    cases = [shuffle_case(dev, *case, smi) for case in SHUFFLE_CASES]
+    other = ab.Baseline()
+    log(f"[14] the earlier S2 and T1 built in {time.perf_counter() - t0:.1f}"
+        f" s; launches of a canonical parameter_scan call ([4]): S2 "
+        f"{main_launches['s2']}, T1 {main_launches['t1']}, S1 "
+        f"{main_launches['s1']}")
+    cases = [shuffle_case(dev, *case, smi, other)
+             for case in ab.SHUFFLE_CASES]
     loop = strict_loop_phase(smi)
     log(f"[14] epoch shuffle and threefry: {time.perf_counter() - t0:.1f} s")
     return cases, loop
@@ -2967,12 +2990,17 @@ def main() -> int:
     from mfcd_tpu_torch.core import prng
     from mfcd_tpu_torch.ops import _build, kernels, shuffle
 
+    global PEAK_INT32_OPS
     t_all = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = card_line()
+    sms, clock_mhz = card_int_rate()
+    PEAK_INT32_OPS = peak_int32_ops(sms, clock_mhz)
     log(f"[1] device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s); "
+        f"{sms} SMs, max SM clock {clock_mhz:g} MHz: PEAK_INT32_OPS "
+        f"{PEAK_INT32_OPS:.6g} a second ({INT32_PER_SM} a clock an SM)")
 
     t0 = time.perf_counter()
     built = _build.build_all(force=True)
@@ -3112,7 +3140,7 @@ def main() -> int:
     # [14] The epoch shuffle (S1, S2) and threefry (T1) against their plain
     # versions at the main path's shapes, and the canonical epoch loop with
     # no host sync.
-    shuffle_cases, strict_loop = shuffle_phase(dev, smi)
+    shuffle_cases, strict_loop = shuffle_phase(dev, smi, main_launches)
     canon_shuffle = shuffle_cases[0]
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -3165,8 +3193,11 @@ def main() -> int:
         "replaces": "mfcd_tpu/ops/shuffle.py:284",
         "launches": main_launches["s2"],
         "max_abs_err": 0,
+        "redesigned": True,
         "ms": canon_shuffle["mix_stream"]["ms"],
         "host_ms": canon_shuffle["mix_stream"]["host_ms"],
+        "baseline_ms": canon_shuffle["mix_stream"]["baseline_ms"],
+        "baseline_host_ms": canon_shuffle["mix_stream"]["baseline_host_ms"],
         "plain_ms": canon_shuffle["mix_stream"]["plain_ms"],
         "bound_ms": canon_shuffle["mix_stream"]["bound_ms"],
         "bound_by": canon_shuffle["mix_stream"]["bound_by"],
@@ -3180,8 +3211,12 @@ def main() -> int:
         "replaces": "mfcd_tpu/ops/shuffle.py:39",
         "launches": main_launches["t1"],
         "max_abs_err": 0,
+        "redesigned": True,
         "ms": canon_shuffle["threefry2x32"]["bits"]["ms"],
         "host_ms": canon_shuffle["threefry2x32"]["bits"]["host_ms"],
+        "baseline_ms": canon_shuffle["threefry2x32"]["bits"]["baseline_ms"],
+        "baseline_host_ms": canon_shuffle["threefry2x32"]["bits"][
+            "baseline_host_ms"],
         "plain_ms": canon_shuffle["threefry2x32"]["bits"]["plain_ms"],
         "bound_ms": canon_shuffle["threefry2x32"]["bits"]["bound_ms"],
         "bound_by": canon_shuffle["threefry2x32"]["bits"]["bound_by"],

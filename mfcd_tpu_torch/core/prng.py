@@ -96,72 +96,117 @@ def _on(who: str, device: torch.device) -> bool:
     raise ValueError(f"{who}: unsupported device {device}")
 
 
-def _t1(entry: str):
-    args = {"mfcd_threefry_hash": [ctypes.c_void_p] * 6
-            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-               ctypes.c_int, ctypes.c_void_p],
-            "mfcd_threefry_bits": [ctypes.c_void_p, ctypes.c_longlong,
-                                   ctypes.c_longlong, ctypes.c_longlong,
-                                   ctypes.c_longlong, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_void_p]}[entry]
-    lib = _build.bind("prng_kernel.cu", entry, args)
-    return lib, getattr(lib, entry)
+# How T1 reads each of the four words of a hash (prng_kernel.cu's Kind).
+# An operand is (kind, pointer or value, shape, strides, tensor): a
+# tensor's metadata, never a view of it, so a launch builds no tensor but
+# its output; the tensor rides along to stay alive through the launch.
+_VALUE, _INT64, _INT32, _LAST, _INT64_HI, _INT32_HI = range(6)
+_HI = {_INT64: _INT64_HI, _INT32: _INT32_HI}
+_ZERO = (_VALUE, 0, (), (), None)
+_INDEX = (_LAST, 0, (), (), None)
 
 
-def _hash_launch(words, pairs: bool) -> torch.Tensor:
-    """T1 over int64 word tensors ``(k0, k1, x0, x1)`` on one card,
-    broadcast against each other (read through their strides, nothing
-    expanded): ``[*shape]`` words ``o0 ^ o1``, or ``[*shape, 2]`` pairs."""
+def _t1():
+    return _build.bind("prng_kernel.cu", "mfcd_threefry",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p])
+
+
+def _bshape(a: tuple, b: tuple) -> tuple:
+    """The broadcast of two shapes, in plain Python: it runs on every
+    launch, and returns at once where the shapes agree, as they mostly
+    do (numpy's and torch's helpers cost more host time a call)."""
+    if a == b or not b:
+        return a
+    if not a:
+        return b
+    n = max(len(a), len(b))
+    a, b = (1,) * (n - len(a)) + a, (1,) * (n - len(b)) + b
+    out = []
+    for x, y in zip(a, b):
+        if x != y and x != 1 and y != 1:
+            raise ValueError(f"threefry2x32: shapes {a} and {b} do not "
+                             f"broadcast")
+        out.append(y if x == 1 else x)
+    return tuple(out)
+
+
+def _word(t, dev) -> tuple:
+    """A word tensor as a T1 operand: int64 and int32 read as they lie,
+    any other type converted to int64 first."""
+    if not isinstance(t, torch.Tensor) or t.device != dev:
+        raise ValueError(f"threefry2x32: every word tensor must lie on "
+                         f"{dev}")
+    if t.dtype == torch.int32:
+        kind = _INT32
+    else:
+        kind = _INT64
+        if t.dtype != torch.int64:
+            t = t.to(torch.int64)
+    return kind, t.data_ptr(), tuple(t.shape), t.stride(), t
+
+
+def _key_words(k: torch.Tensor, counter: bool = False) -> tuple:
+    """Keys ``[..., 2]`` as the k0 and k1 operands (the second word one
+    last-dim stride past the first), and their leading shape.  With
+    ``counter`` the operands carry a trailing dim of 1, to broadcast over
+    the counter's new last dimension."""
+    shape = tuple(k.shape)
+    if not shape or shape[-1] != 2:
+        raise ValueError(f"threefry2x32: keys of shape {shape}, expected "
+                         f"[..., 2]")
+    if k.dtype != torch.int64:
+        k = k.to(torch.int64)
+    st = k.stride()
+    lead, lead_st = shape[:-1], st[:-1]
+    if counter:
+        lead_shape, lead_st = lead + (1,), lead_st + (0,)
+    else:
+        lead_shape = lead
+    ptr = k.data_ptr()
+    return ((_INT64, ptr, lead_shape, lead_st, k),
+            (_INT64, ptr + 8 * st[-1], lead_shape, lead_st, k), lead)
+
+
+def _hash_launch(shape: tuple, ops, pairs: bool, dev) -> torch.Tensor:
+    """One T1 launch: the threefry2x32 hash of the operands ``ops`` (k0,
+    k1, x0, x1) over ``shape``: ``[*shape]`` words ``o0 ^ o1``, or
+    ``[*shape, 2]`` pairs."""
     global THREEFRY_LAUNCHES
-    dev = words[0].device
-    for w in words:
-        if not isinstance(w, torch.Tensor) or w.device != dev:
-            raise ValueError(f"threefry2x32: every word tensor must lie on "
-                             f"{dev}")
-    words = torch.broadcast_tensors(*(w.to(torch.int64) for w in words))
-    shape = tuple(words[0].shape)
     if len(shape) > _MAX_DIMS:
         raise ValueError(f"threefry2x32: {len(shape)} dims, the kernel "
                          f"takes at most {_MAX_DIMS}")
     out = torch.empty(shape + ((2,) if pairs else ()), dtype=torch.int64,
                       device=dev)
-    n = math.prod(shape)
-    if n == 0:
-        return out
-    lib, fn = _t1("mfcd_threefry_hash")
-    nd = len(shape)
-    c_shape = (ctypes.c_longlong * max(nd, 1))(*shape)
-    c_strides = (ctypes.c_longlong * max(4 * nd, 1))(
-        *(s for w in words for s in w.stride()))
-    err = fn(*(w.data_ptr() for w in words), c_shape, c_strides, nd, n,
-             out.data_ptr(), int(pairs), torch.cuda.current_stream(
-                 dev).cuda_stream)
-    _build.raise_on(lib, err, "threefry2x32 (T1 hash)")
-    THREEFRY_LAUNCHES += 1
-    return out
-
-
-def _bits_launch(k: torch.Tensor, n: int, pairs: bool) -> torch.Tensor:
-    """T1's counter entry: ``bits(k, (n,))`` words ``[..., n]``, or the
-    hashed pairs ``[..., n, 2]`` (``split``'s keys), for keys ``[..., 2]``
-    on one card."""
-    global THREEFRY_LAUNCHES
-    if k.shape[-1:] != (2,):
-        raise ValueError(f"threefry2x32: keys of shape {tuple(k.shape)}, "
-                         f"expected [..., 2]")
-    lead = tuple(k.shape[:-1])
-    kf = k.to(torch.int64).reshape(-1, 2)
-    out = torch.empty(lead + (n,) + ((2,) if pairs else ()),
-                      dtype=torch.int64, device=k.device)
     if out.numel() == 0:
         return out
-    lib, fn = _t1("mfcd_threefry_bits")
-    err = fn(kf.data_ptr(), kf.stride(0), kf.stride(1), kf.shape[0], n,
-             out.data_ptr(), int(pairs),
-             torch.cuda.current_stream(k.device).cuda_stream)
-    _build.raise_on(lib, err, "threefry2x32 (T1 bits)")
+    run = shape or (1,)
+    nd = len(run)
+    desc = list(run)
+    for kind, ptr, op_shape, op_st, _ in ops:
+        desc += (kind, ptr)
+        pad = nd - len(op_shape)
+        desc += (0,) * pad
+        desc += (0 if n == 1 else s for n, s in zip(op_shape, op_st))
+    lib = _t1()
+    err = lib.mfcd_threefry((ctypes.c_longlong * len(desc))(*desc), nd,
+                            int(pairs), out.data_ptr(),
+                            _build.stream_ptr(dev))
+    _build.raise_on(lib, err, "threefry2x32 (T1)")
     THREEFRY_LAUNCHES += 1
     return out
+
+
+def _counter_launch(k: torch.Tensor, n: int, pairs: bool) -> torch.Tensor:
+    """T1 with the counter ``(0, i)`` of index i along a new last
+    dimension of ``n``: ``bits(k, (n,))`` words ``[..., n]`` or
+    ``split(k, n)`` pairs ``[..., n, 2]``, for keys ``[..., 2]``."""
+    if not 0 <= n < 2 ** 31:
+        raise ValueError(f"threefry2x32: {n} counters a key, the kernel "
+                         f"takes below 2^31")
+    k0, k1, lead = _key_words(k, counter=True)
+    return _hash_launch(lead + (n,), (k0, k1, _ZERO, _INDEX), pairs,
+                        k.device)
 
 
 def threefry2x32(k0, k1, x0, x1):
@@ -170,7 +215,11 @@ def threefry2x32(k0, k1, x0, x1):
     the CPU."""
     if not _on("threefry2x32", k0.device):
         return threefry2x32_reference(k0, k1, x0, x1)
-    out = _hash_launch((k0, k1, x0, x1), pairs=True)
+    ops = tuple(_word(w, k0.device) for w in (k0, k1, x0, x1))
+    shape = ()
+    for op in ops:
+        shape = _bshape(shape, op[2])
+    out = _hash_launch(shape, ops, True, k0.device)
     return out[..., 0], out[..., 1]
 
 
@@ -191,12 +240,19 @@ def fold_in_reference(k: torch.Tensor, data) -> torch.Tensor:
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``data`` may be a tensor broadcast against
-    the key's leading dims."""
+    the key's leading dims.  On the card one T1 launch: an integer goes in
+    by value, a tensor through its strides."""
     if not _on("fold_in", k.device):
         return fold_in_reference(k, data)
-    d = _u32(data, k.device)
-    return _hash_launch((k[..., 0], k[..., 1], torch.zeros_like(d), d),
-                        pairs=True)
+    k0, k1, lead = _key_words(k)
+    if isinstance(data, (int, np.integer)):
+        d, shape = (_VALUE, int(data) & M32, (), (), None), lead
+    else:
+        if not isinstance(data, torch.Tensor):
+            data = _u32(data, k.device)
+        d = _word(data, k.device)
+        shape = _bshape(lead, d[2])
+    return _hash_launch(shape, (k0, k1, _ZERO, d), True, k.device)
 
 
 def _iota_pair(shape: Sequence[int], device):
@@ -222,10 +278,11 @@ def split_reference(k: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``[..., 2] -> [..., num, 2]``."""
+    """``jax.random.split``: ``[..., 2] -> [..., num, 2]``.  ``split(k,
+    n)[..., i, :]`` is ``fold_in(k, i)``: both hash the counter (0, i)."""
     if not _on("split", k.device):
         return split_reference(k, num)
-    return _bits_launch(k, num, pairs=True)
+    return _counter_launch(k, num, pairs=True)
 
 
 def bits_reference(k: torch.Tensor,
@@ -240,8 +297,8 @@ def bits(k: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     shape = tuple(shape)
     if not _on("bits", k.device):
         return bits_reference(k, shape)
-    return _bits_launch(k, math.prod(shape), pairs=False).reshape(
-        k.shape[:-1] + shape)
+    out = _counter_launch(k, math.prod(shape), pairs=False)
+    return out if len(shape) == 1 else out.reshape(k.shape[:-1] + shape)
 
 
 def bits_at_reference(k: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -254,12 +311,15 @@ def bits_at_reference(k: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 def bits_at(k: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """The words of ``bits(k, shape)`` at flat (row-major) positions
-    ``index`` only; ``k [..., 2]`` broadcasts against ``index``."""
+    ``index`` only; ``k [..., 2]`` broadcasts against ``index``.  On the
+    card one T1 launch, the counter split into its words there."""
     if not _on("bits_at", k.device):
         return bits_at_reference(k, index)
-    index = index.to(torch.int64)
-    return _hash_launch((k[..., 0], k[..., 1], index >> 32, index & M32),
-                        pairs=False)
+    k0, k1, lead = _key_words(k)
+    x1 = _word(index, k.device)
+    x0 = (_HI[x1[0]],) + x1[1:]
+    return _hash_launch(_bshape(lead, x1[2]), (k0, k1, x0, x1), False,
+                        k.device)
 
 
 def _as_f32(x, device) -> torch.Tensor:

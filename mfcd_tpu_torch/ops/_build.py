@@ -25,6 +25,8 @@ import subprocess
 import threading
 from typing import Dict
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -123,10 +125,17 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+_bound: Dict[tuple, ctypes.CDLL] = {}
+
+
 def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
     """The library built from ``csrc/<name>``, with its entry ``fn`` typed
     (``argtypes``, returning a CUDA error code) and its
-    ``mfcd_cuda_error_string``."""
+    ``mfcd_cuda_error_string``.  After the first call a dictionary
+    lookup: the wrappers call it on every launch."""
+    lib = _bound.get((name, fn))
+    if lib is not None:
+        return lib
     lib = load(name)
     entry = getattr(lib, fn)
     if entry.argtypes is None:
@@ -134,7 +143,17 @@ def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
         entry.restype = ctypes.c_int
         lib.mfcd_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mfcd_cuda_error_string.restype = ctypes.c_char_p
+    _bound[(name, fn)] = lib
     return lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    device), without building a ``torch.cuda.Stream`` object."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:

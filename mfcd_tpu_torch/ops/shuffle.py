@@ -80,16 +80,18 @@ def _walk(x, step, count_u, max_iters=None):
     return x
 
 
+_S2_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+            + [ctypes.c_void_p] * 8 + [ctypes.c_int]
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+
+
 def _library():
-    lib = _build.bind("shuffle_kernel.cu", "mfcd_prp",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                               ctypes.c_void_p]
-                      + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p])
-    return _build.bind("shuffle_kernel.cu", "mfcd_mix_stream",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+    _build.bind("shuffle_kernel.cu", "mfcd_prp",
+                [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+                + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])
+    return _build.bind("shuffle_kernel.cu", "mfcd_mix_stream", _S2_ARGS)
 
 
 def _check_k_bits(who: str, k_bits: int) -> None:
@@ -282,19 +284,22 @@ def stream_tile_width(batch_size: int) -> int | None:
 
 
 def _source_map(key: torch.Tensor, epoch: int, count, s_len: int,
-                k_bits: int, period: int, tile_w: int | None) -> torch.Tensor:
+                k_bits: int, period: int, tile_w: int | None,
+                folded: bool = False) -> torch.Tensor:
     """The slot each output slot of one epoch's bijection reads, int64
     ``[..., s_len]``: S2's map in plain PyTorch.
 
-    ``key`` is the epochs key ``[..., 2]`` (``epoch`` is folded in here).
+    ``key`` is the epochs key ``[..., 2]`` (``epoch`` is folded in here),
+    or with ``folded`` the epoch's key itself.
     A fresh epoch maps slot s to ``epoch_permutation(k_prp, s)``; a cheap
     one rotates the prefix left by rho (``bits(k_rho) % count``) and then
     moves each full tile t < count // tile_w to the PRP of t (the partial
     tile and the padding stay), so output slot s reads slot ``rot(p)``,
     ``p = tile_src(s // tile_w) * tile_w + s % tile_w``.  Slots past count
     read in-bounds padding, as JAX's rotation of the doubled array does."""
-    k_prp, k_rho, k_tile = prng.split_reference(
-        prng.fold_in_reference(key, epoch), 3).unbind(-2)
+    if not folded:
+        key = prng.fold_in_reference(key, epoch)
+    k_prp, k_rho, k_tile = prng.split_reference(key, 3).unbind(-2)
     slots = torch.arange(s_len, dtype=torch.int64, device=key.device)
     if period == 1 or epoch % period == 0:
         return epoch_permutation_reference(k_prp, slots, count,
@@ -322,73 +327,92 @@ def mix_stream_reference(arrays, key: torch.Tensor, epoch: int, count,
                          tile_w: int | None):
     """:func:`mix_stream` in plain PyTorch: the composed source map, then
     one gather per array."""
-    src = _source_map(key, epoch, count, arrays[0].shape[-1], k_bits,
-                      period, tile_w)
+    return _gather_stream(arrays, _source_map(
+        key, epoch, count, arrays[0].shape[-1], k_bits, period, tile_w))
+
+
+def _gather_stream(arrays, src: torch.Tensor) -> tuple:
     return tuple(torch.gather(a, -1, src.expand(a.shape)) for a in arrays)
 
 
 def _mix_stream_launch(arrays, key: torch.Tensor, epoch: int, count,
-                       k_bits: int, period: int, tile_w: int | None):
+                       k_bits: int, period: int, tile_w: int | None,
+                       folded: bool = False):
     """S2: one launch advances every run's arrays ``[..., S]`` (1, 2 or 4
-    of 32-bit words, one layout) by one epoch, into fresh outputs."""
+    of 32-bit words, one layout) by one epoch, into fresh outputs.  Every
+    check reads shapes, devices and strides only, and nothing is converted
+    where the caller passes int32 counts and int64 keys whose words lie
+    side by side (the trainer does): one launch a call."""
     global SHUFFLE_LAUNCHES
     who = "mix_stream"
     _check_k_bits(who, k_bits)
     if len(arrays) not in (1, 2, 4):
         raise ValueError(f"{who}: {len(arrays)} arrays, expected 1, 2 or 4")
     a0 = arrays[0]
-    dev, shape = a0.device, tuple(a0.shape)
+    dev, shape = a0.device, a0.shape
     for a in arrays:
-        if a.device != dev or tuple(a.shape) != shape:
+        if a.device != dev or a.shape != shape:
             raise ValueError(f"{who}: arrays of shapes "
                              f"{[tuple(b.shape) for b in arrays]} on "
                              f"{[str(b.device) for b in arrays]}")
         if a.element_size() != 4 or not a.is_contiguous():
             raise ValueError(f"{who}: arrays must be contiguous 32-bit "
                              f"words, got {a.dtype}")
-    if not shape or key.device != dev or tuple(key.shape) != shape[:-1] + (2,):
+    if (not shape or key.device != dev
+            or key.shape != shape[:-1] + (2,)):
         raise ValueError(f"{who}: key {tuple(key.shape)} on {key.device}, "
-                         f"expected {shape[:-1] + (2,)} on {dev}")
+                         f"expected {tuple(shape[:-1]) + (2,)} on {dev}")
     if epoch < 0 or period < 1:
         raise ValueError(f"{who}: epoch={epoch}, period={period}")
-    rows = a0.numel() // shape[-1] if shape[-1] else 0
+    s_len = shape[-1]
+    rows = a0.numel() // s_len if s_len else 0
     if isinstance(count, torch.Tensor):
         if count.device != dev or count.numel() != rows:
             raise ValueError(f"{who}: count {tuple(count.shape)} on "
                              f"{count.device}, expected {rows} on {dev}")
-        count = count.to(torch.int32).reshape(-1).contiguous()
+        if count.dtype != torch.int32 or not count.is_contiguous():
+            count = count.to(torch.int32).contiguous()
     else:
         count = torch.full((rows,), int(count), dtype=torch.int32,
                            device=dev)
-    keys = key.to(torch.int64).reshape(-1, 2).contiguous()
+    if key.dtype != torch.int64 or key.stride(-1) != 1:
+        key = key.to(torch.int64).contiguous()
+    keys = key.reshape(-1, 2) if key.dim() != 2 else key
     outs = tuple(torch.empty_like(a) for a in arrays)
-    if not rows or not shape[-1]:
+    if not rows or not s_len:
         return outs
+    ptrs = [a.data_ptr() for a in arrays] + [None] * (4 - len(arrays))
+    dsts = [o.data_ptr() for o in outs] + [None] * (4 - len(arrays))
     lib = _library()
-    ins = (ctypes.c_void_p * 4)(*(a.data_ptr() for a in arrays))
-    dst = (ctypes.c_void_p * 4)(*(o.data_ptr() for o in outs))
-    err = lib.mfcd_mix_stream(keys.data_ptr(), count.data_ptr(), ins, dst,
-                              len(arrays), rows, shape[-1], epoch, period,
-                              k_bits, tile_w or 0,
-                              torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.mfcd_mix_stream(keys.data_ptr(), keys.stride(0),
+                              count.data_ptr(), *ptrs, *dsts, len(arrays),
+                              rows, s_len, epoch, period, k_bits,
+                              tile_w or 0, int(folded),
+                              _build.stream_ptr(dev))
     _build.raise_on(lib, err, f"{who} (S2)")
     SHUFFLE_LAUNCHES += 1
     return outs
 
 
 def mix_stream(arrays, key: torch.Tensor, epoch: int, count, k_bits: int,
-               *, period: int, tile_w: int | None):
+               *, period: int, tile_w: int | None, folded: bool = False):
     """Advance a carried epoch stream by one epoch's bijection.
 
     ``arrays`` is a tuple of ``[..., S]`` row arrays sharing one layout;
     valid rows occupy the prefix [0, count).  ``key`` is the epochs key
     ``[..., 2]``: the epoch's key is ``fold_in(key, epoch)``, as the JAX
-    trainers pass it to ``mix_stream``.  Returns the mixed tuple, fresh
-    tensors.  CUDA tensors take one S2 launch (32-bit arrays, contiguous);
-    CPU tensors the plain version."""
+    trainers pass it to ``mix_stream``; with ``folded`` ``key`` is that
+    epoch's key already (JAX's ``mix_stream`` contract; ``prng.split(key,
+    E)[..., e, :]`` is ``fold_in(key, e)``).  Returns the mixed tuple,
+    fresh tensors.  CUDA tensors take one S2 launch (32-bit arrays,
+    contiguous); CPU tensors the plain version."""
     arrays = tuple(arrays)
     if prng._on("mix_stream", arrays[0].device):
         return _mix_stream_launch(arrays, key, epoch, count, k_bits, period,
-                                  tile_w)
+                                  tile_w, folded)
+    if folded:
+        return _gather_stream(arrays, _source_map(
+            key, epoch, count, arrays[0].shape[-1], k_bits, period, tile_w,
+            folded=True))
     return mix_stream_reference(arrays, key, epoch, count, k_bits,
                                 period=period, tile_w=tile_w)

@@ -8,8 +8,8 @@ same coupled-weight-decay Adam (bias corrections as ``exp(t * log(beta))``
 here, ``beta ** t`` there).  Per epoch:
 
 1. advance the carried packed row stream by one epoch's bijection
-   (``mix_stream``, which folds the epoch into the epochs keys; on the
-   card one launch of S2),
+   (``mix_stream`` with the epoch's keys, folded for every epoch before
+   the loop; on the card one launch of S2),
 2. one ``train_epoch`` call trains every run's epoch (on the card: one
    kernel launch), with the Adam step count carried across epochs,
 3. a masked validation pass records the per-epoch val loss.
@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 from torch.profiler import record_function
 
+from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.data.btl import LabeledSplit
 from mfcd_tpu_torch.models.mf import MFParams
 from mfcd_tpu_torch.ops.kernels import EpochState, train_epoch
@@ -113,14 +114,17 @@ def train_runs_kernel(
     spec = _pack_spec(n, m, label_denom)
     stream = _pack_stream(train, spec, label_denom, padded - rows)
     kernel_pack = (*spec, label_denom)
-    keys = epochs_keys.to(torch.int64).contiguous()
+    # fold_in(epochs key, e) for every epoch in one launch: split(k, E)
+    # hashes the counters (0, e), as fold_in(k, e) does.
+    epoch_keys = prng.split(epochs_keys.to(torch.int64), num_epochs)
     train_losses, val_losses = [], []
     # Nothing in the loop reads the card back or copies a host value to it:
     # on the card an epoch is S2, K1 and the validation pass's launches.
     for epoch in range(num_epochs):
         with record_function("mfcd.train.mix"):
-            stream = mix_stream(stream, keys, epoch, count, k_bits,
-                                period=period, tile_w=tile_w)
+            stream = mix_stream(stream, epoch_keys[..., epoch, :], epoch,
+                                count, k_bits, period=period, tile_w=tile_w,
+                                folded=True)
         with record_function("mfcd.train.epoch"):
             step0 = float(epoch) * nonempty_batches
             state, loss = train_epoch(

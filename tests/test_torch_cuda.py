@@ -976,6 +976,169 @@ def test_threefry_kernel_matches_plain_version(shape):
         assert torch.equal(a, b)
 
 
+# S2's and T1's edge cases on the card.  (s_len, tile_w, counts, k_bits, rho
+# targets): each rho the quad copy aligns differently (0, 1, 3, tile_w - 1),
+# S not a multiple of a warp's 128 words, S not a multiple of 4 (the
+# per-slot kernel), counts 0, 1 and S, k_bits 1, 17 and 32.
+S2_EDGES = {
+    "aligned": (256, 8, [200, 201, 130, 256], 8, [0, 1, 3, 7]),
+    "ragged-group": (8 * 37, 8, [295, 296, 177, 160], 9, [0, 1, 3, 7]),
+    "ragged-tile-4": (4 * 75, 4, [299, 300, 177, 160], 9, [0, 1, 3, 3]),
+    "ragged-quad": (301, None, [300, 301, 150, 99], 9, [0, 1, 3, 7]),
+    "counts-0-1-S": (128, 32, [0, 1, 128, 127], 7, [0, 0, 3, 31]),
+    "no-tiles": (200, None, [199, 200, 3, 150], 8, [0, 1, 2, 149]),
+    "k-bits-1": (64, 8, [2, 1, 64, 60], 1, [0, 0, 1, 3]),
+    "k-bits-17": (512, 64, [500, 512, 300, 64], 17, [0, 1, 3, 63]),
+    "k-bits-32": (256, 128, [255, 256, 200, 130], 32, [0, 1, 3, 127]),
+}
+
+
+def _rho_keys(targets, counts, epoch):
+    """Epochs keys whose cheap epoch ``epoch`` rotates run r by
+    ``targets[r]``, found among split(key(0), 4096) with the plain
+    threefry."""
+    from mfcd_tpu_torch.core import prng
+
+    cands = prng.split_reference(prng.key(0), 4096)
+    k_rho = prng.split_reference(prng.fold_in_reference(cands, epoch),
+                                 3)[:, 1]
+    word = prng.bits_reference(k_rho, ())
+    return torch.stack([cands[torch.nonzero(word % max(c, 1) == t)[0, 0]]
+                        for t, c in zip(targets, counts)])
+
+
+def _s2_against_plain(arrs, keys, counts, k_bits, tile_w, epochs,
+                      period=4):
+    """S2 from the epochs keys and from the epoch's folded keys (the
+    trainer's form), each one launch, bit-equal to the plain version."""
+    from mfcd_tpu_torch.core import prng
+    from mfcd_tpu_torch.ops import shuffle as SH
+
+    for epoch in epochs:
+        want = SH.mix_stream_reference(arrs, keys, epoch, counts, k_bits,
+                                       period=period, tile_w=tile_w)
+        before = SH.SHUFFLE_LAUNCHES
+        got = SH.mix_stream(arrs, keys, epoch, counts, k_bits,
+                            period=period, tile_w=tile_w)
+        ekeys = prng.split(keys, epoch + 1)[:, epoch]
+        folded = SH.mix_stream(arrs, ekeys, epoch, counts, k_bits,
+                               period=period, tile_w=tile_w, folded=True)
+        assert SH.SHUFFLE_LAUNCHES == before + 2
+        for a, b, c in zip(got, folded, want):
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32)), \
+                epoch
+            assert torch.equal(b.view(torch.int32), c.view(torch.int32)), \
+                epoch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arrays", [1, 2, 4])
+@pytest.mark.parametrize("case", list(S2_EDGES))
+def test_mix_stream_kernel_at_the_edges(case, arrays):
+    dev = _card()
+    s_len, tile_w, counts, k_bits, rhos = S2_EDGES[case]
+    g = torch.Generator(device=dev).manual_seed(s_len + arrays)
+    arrs = tuple(torch.randint(-2**31, 2**31 - 1, (4, s_len),
+                               dtype=torch.int32, device=dev, generator=g)
+                 for _ in range(arrays))
+    counts_t = torch.tensor(counts, dtype=torch.int32, device=dev)
+    for epoch in (0, 1, 3):   # keys rotated by the targets at epoch 1
+        _s2_against_plain(arrs, _rho_keys(rhos, counts, 1).to(dev),
+                          counts_t, k_bits, tile_w, (epoch,))
+    _s2_against_plain(arrs, _rho_keys(rhos, counts, 2).to(dev), counts_t,
+                      k_bits, tile_w, (2,), period=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["many-rows", "2^22+5"])
+def test_mix_stream_kernel_past_a_wave_and_odd_lengths(shape):
+    # 1,100 runs: more blocks than the card holds at once (about 8 an SM);
+    # 2^22 + 5 slots: S not a multiple of 4, the per-slot kernel, at hard
+    # K = 50's count.
+    dev = _card()
+    r, s_len, count, k_bits, tile_w = {
+        "many-rows": (1100, 8192, 8000, 13, 64),
+        "2^22+5": (2, (1 << 22) + 5, 4_000_000, 22, None)}[shape]
+    keys = _shuffle_keys(r, dev, 3)
+    counts = torch.tensor([count - 3 * i for i in range(r)],
+                          dtype=torch.int32, device=dev)
+    arrs = (torch.arange(r * s_len, dtype=torch.int32,
+                         device=dev).reshape(r, s_len),)
+    _s2_against_plain(arrs, keys, counts, k_bits, tile_w, (0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["many-rows", "2^22+5", "edges"])
+def test_threefry_kernel_past_a_wave_and_odd_lengths(shape):
+    # 70,000 keys: more output rows than a grid's y (65,535); 2^22 + 5
+    # words a key: an odd row, word by word stores; and every datum form.
+    from mfcd_tpu_torch.core import prng
+
+    dev = _card()
+    if shape == "many-rows":
+        keys = _shuffle_keys(70_000, dev, 4)
+        pairs = [(prng.bits(keys, (3,)), prng.bits_reference(keys, (3,))),
+                 (prng.split(keys, 2), prng.split_reference(keys, 2))]
+    elif shape == "2^22+5":
+        keys = _shuffle_keys(2, dev, 5)
+        n = (1 << 22) + 5
+        pairs = [(prng.bits(keys, (n,)), prng.bits_reference(keys, (n,)))]
+    else:
+        keys = _shuffle_keys(3, dev, 6)
+        pairs = []
+        for data in (7, np.uint32(2**32 - 3),
+                     torch.tensor(2**31 + 9, device=dev),
+                     torch.tensor([5, -1, 0], dtype=torch.int32, device=dev),
+                     torch.arange(4, device=dev)[:, None] * 2**31):
+            pairs.append((prng.fold_in(keys, data),
+                          prng.fold_in_reference(keys, data)))
+        strided = torch.stack([keys, keys ^ 5], 1).reshape(6, 2)[::2]
+        pairs += [(prng.split(strided, 3), prng.split_reference(strided, 3)),
+                  (prng.bits(keys[1], ()), prng.bits_reference(keys[1], ())),
+                  (prng.bits(keys, (3, 5)),
+                   prng.bits_reference(keys, (3, 5)))]
+        idx = torch.tensor([0, 2**32 + 1, -7], dtype=torch.int64,
+                           device=dev)
+        pairs.append((prng.bits_at(keys[:, None], idx),
+                      prng.bits_at_reference(keys[:, None], idx)))
+        idx32 = torch.tensor([3, -2], dtype=torch.int32, device=dev)
+        pairs.append((prng.bits_at(keys[:1], idx32),
+                      prng.bits_at_reference(keys[:1], idx32)))
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fold_in", "fold_in tensor", "split",
+                                  "bits", "bits_at", "threefry2x32"])
+def test_key_ops_make_one_kernel_launch(name):
+    # torch.profiler's kernel events over one call, after a warm one.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfcd_tpu_torch.core import prng
+
+    dev = _card()
+    keys = _shuffle_keys(4, dev, 7)
+    idx = torch.arange(5, device=dev)
+    datum = torch.tensor(3, device=dev)
+    call = {"fold_in": lambda: prng.fold_in(keys, 5),
+            "fold_in tensor": lambda: prng.fold_in(keys[:, None], idx),
+            "split": lambda: prng.split(keys[1:, ], 3),
+            "bits": lambda: prng.bits(keys, (4, 7)),
+            "bits_at": lambda: prng.bits_at(keys[:, None], idx),
+            "threefry2x32": lambda: prng.threefry2x32(
+                keys[:, 0], keys[:, 1], datum, idx[:, None])}[name]
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert kernels and len(kernels) == 1, kernels
+
+
 @pytest.mark.cuda
 def test_kernel_trainer_epoch_loop_has_no_host_sync(monkeypatch):
     # The canonical run (n = m = 1000, d = 2, p = 0.2, 30 epochs, reps = 4)

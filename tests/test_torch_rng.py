@@ -186,7 +186,7 @@ def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel")
 
     monkeypatch.setattr(prng, "_hash_launch", no_launch)
-    monkeypatch.setattr(prng, "_bits_launch", no_launch)
+    monkeypatch.setattr(prng, "_counter_launch", no_launch)
     before = prng.THREEFRY_LAUNCHES
     got = _prng_calls(prng.key(5))[name]()
     assert prng.THREEFRY_LAUNCHES == before
@@ -211,3 +211,133 @@ def test_meta_tensors_raise(name):
     k = prng.key(5).to("meta")
     with pytest.raises(ValueError, match="unsupported device meta"):
         _prng_calls(k)[name]()
+
+
+# T1's one-launch argument packing.  The wrappers hand the kernel one
+# descriptor (the output's shape; for k0, k1, x0, x1 a kind, a pointer or a
+# value, and strides aligned to the output).  _FakeT1 stands in for the
+# built library on CPU tensors: it reads the descriptor as the kernel does
+# (prng_kernel.cu's Kind), through the pointers into the tensors' memory,
+# hashes with the plain threefry and writes the output buffer.  So each
+# entry's packing is held against jax.random, one launch a call.
+class _FakeT1:
+    def __init__(self, monkeypatch):
+        self.calls = 0
+        monkeypatch.setattr(prng, "_on", lambda who, dev: True)
+        monkeypatch.setattr(prng, "_t1", lambda: self)
+        monkeypatch.setattr(prng._build, "stream_ptr", lambda dev: 0)
+
+    @staticmethod
+    def _operand(kind, ptr, strides, shape):
+        import ctypes
+        from numpy.lib.stride_tricks import as_strided
+
+        if kind == prng._VALUE:
+            return np.full(shape, ptr & M, np.int64)
+        if kind == prng._LAST:
+            return np.broadcast_to(np.arange(shape[-1], dtype=np.int64),
+                                   shape)
+        wide = kind in (prng._INT64, prng._INT64_HI)
+        ctype, dtype = ((ctypes.c_int64, np.int64) if wide
+                        else (ctypes.c_int32, np.int32))
+        extent = 1 + sum((n - 1) * s for n, s in zip(shape, strides))
+        buf = np.ctypeslib.as_array((ctype * extent).from_address(ptr))
+        size = np.dtype(dtype).itemsize
+        v = as_strided(buf, shape, [s * size for s in strides]).astype(
+            np.int64)
+        return (v >> 32) & M if kind in (prng._INT64_HI,
+                                         prng._INT32_HI) else v & M
+
+    def mfcd_threefry(self, desc, ndim, pairs, out, stream):
+        import ctypes
+
+        self.calls += 1
+        shape = tuple(desc[i] for i in range(ndim))
+        ops = []
+        for q in range(4):
+            o = desc[ndim + q * (ndim + 2):ndim + (q + 1) * (ndim + 2)]
+            ops.append(torch.from_numpy(np.array(
+                self._operand(o[0], o[1], o[2:], shape))))
+        o0, o1 = prng.threefry2x32_reference(*ops)
+        got = torch.stack([o0, o1], -1) if pairs else o0 ^ o1
+        n = got.numel()
+        dst = np.ctypeslib.as_array((ctypes.c_int64 * n).from_address(out))
+        dst[:] = got.reshape(-1).numpy()
+        return 0
+
+
+def _datum(form):
+    return {"int": 7, "numpy int": np.uint32(2**32 - 3),
+            "0-d tensor": torch.tensor(2**31 + 9),
+            "int32 tensor": torch.tensor([5, -1, 0], dtype=torch.int32),
+            "broadcast tensor": torch.arange(3, dtype=torch.int64)[:, None]
+            * 2**31}[form]
+
+
+@pytest.mark.parametrize("form", ["int", "numpy int", "0-d tensor",
+                                  "int32 tensor", "broadcast tensor"])
+def test_fold_in_one_launch_packing_bit_equal(form, monkeypatch):
+    fake = _FakeT1(monkeypatch)
+    jkeys = jax.random.split(jax.random.key(13), 3)
+    tkeys = key_from_jax(jax.random.key_data(jkeys))
+    data = _datum(form)
+    want = jax.vmap(jax.random.fold_in, in_axes=(0, None))
+    if isinstance(data, torch.Tensor):
+        # the datum broadcasts against the keys' leading dims
+        d = data.numpy().astype(np.int64) & M
+        kd = np.broadcast_to(_data(jkeys), np.broadcast_shapes(
+            d.shape, (3,)) + (2,))
+        dd = np.broadcast_to(d, kd.shape[:-1])
+        want = np.stack([_data(jax.random.fold_in(
+            jax.random.wrap_key_data(jnp.asarray(kd[ix], jnp.uint32)),
+            np.uint32(dd[ix]))) for ix in np.ndindex(dd.shape)]).reshape(
+                kd.shape)
+    else:
+        want = _data(want(jkeys, np.uint32(int(data) & M)))
+    before = prng.THREEFRY_LAUNCHES
+    got = prng.fold_in(tkeys, data)
+    assert prng.THREEFRY_LAUNCHES == before + 1 and fake.calls == 1
+    assert tuple(got.shape) == want.shape and (got.numpy() == want).all()
+
+
+@pytest.mark.parametrize("entry", ["split", "bits", "bits scalar",
+                                   "bits_at", "threefry2x32",
+                                   "strided keys"])
+def test_counter_and_hash_one_launch_packing_bit_equal(entry, monkeypatch):
+    fake = _FakeT1(monkeypatch)
+    jk = jax.random.split(jax.random.key(17), 4)
+    tk = key_from_jax(jax.random.key_data(jk))
+    idx = HIGH[:5]
+    before = prng.THREEFRY_LAUNCHES
+    if entry == "split":
+        got = prng.split(tk, 5)
+        want = np.stack([_data(jax.random.split(k, 5)) for k in jk])
+    elif entry == "bits":
+        got = prng.bits(tk, (3, 7))
+        want = np.stack([np.asarray(jax.random.bits(k, (3, 7), jnp.uint32))
+                         for k in jk]).astype(np.int64)
+    elif entry == "bits scalar":
+        got = prng.bits(tk[1], ())
+        want = np.asarray(jax.random.bits(jk[1], (), jnp.uint32)).astype(
+            np.int64)
+    elif entry == "bits_at":
+        got = prng.bits_at(tk[:1], torch.from_numpy(idx))
+        o0, o1 = _jax_hash(jk[0], idx >> 32, idx & M)
+        want = o0 ^ o1
+    elif entry == "threefry2x32":
+        x1 = torch.arange(6, dtype=torch.int32).reshape(2, 3)
+        got = torch.stack(prng.threefry2x32(
+            tk[:2, None, 0], tk[0, 1], torch.tensor(9), x1), -1)
+        want = np.stack(np.broadcast_arrays(*prng.threefry2x32_reference(
+            tk[:2, None, 0], tk[0, 1], torch.tensor(9),
+            x1.to(torch.int64))), -1)
+        o0, o1 = _jax_hash(jk[0], np.full(3, 9), np.arange(3))
+        assert (want[0, :, 0] == o0).all() and (want[0, :, 1] == o1).all()
+    else:   # keys read through non-unit strides: every other row, a view
+        wide = torch.stack([tk, tk ^ 5], 1).reshape(8, 2)[::2]
+        assert not wide.is_contiguous()
+        got = prng.split(wide, 2)
+        want = np.stack([_data(jax.random.split(k, 2)) for k in jk])
+    assert prng.THREEFRY_LAUNCHES == before + 1 and fake.calls == 1
+    assert tuple(got.shape) == want.shape
+    assert (got.numpy() == want).all()

@@ -238,6 +238,7 @@ class _FakeLaunch:
         monkeypatch.setattr(T, "_library", lambda: self)
         monkeypatch.setattr(torch.cuda, "current_stream",
                             lambda dev=None: type("S", (), {"cuda_stream": 0}))
+        monkeypatch.setattr(T._build, "stream_ptr", lambda dev: 0)
 
     def mfcd_prp(self, *args):
         self.calls.append(("prp",) + args)
@@ -290,8 +291,211 @@ def test_mix_stream_wrapper_rejects_what_s2_does_not_take(monkeypatch):
         call((a,), kb=33)
     assert fake.calls == []
     outs = call((a, a.float()))
-    (_, _, _, _, _, arrays, rows, s_len, epoch, period, k_bits, tile_w,
-     _), = fake.calls
-    assert (arrays, rows, s_len, epoch, period, k_bits, tile_w) == (
-        2, 2, 64, 1, 4, 6, 8)
+    (_, _, key_row, _, *ptrs, arrays, rows, s_len, epoch, period, k_bits,
+     tile_w, folded, _), = fake.calls
+    assert (key_row, arrays, rows, s_len, epoch, period, k_bits, tile_w,
+            folded) == (2, 2, 2, 64, 1, 4, 6, 8, 0)
+    assert ptrs[2:4] == [None, None] and ptrs[6:] == [None, None]
     assert [o.dtype for o in outs] == [torch.int32, torch.float32]
+
+
+# S2's quad kernel (ops/csrc/shuffle_kernel.cu, mix_stream_kernel) modelled
+# on the host: a fresh epoch gathers each quad of 4 output slots' words; a
+# cheap epoch walks each full tile once (lane l of a warp's group of T
+# tiles), hands each quad of output words its tile's source through the
+# group (the warp shuffle), and reads the quad's 4 rotated source words from
+# the one or two aligned 16-byte quads that hold them, shifted into place,
+# or word by word where the rotation wraps inside the quad.  Shapes with S
+# not a multiple of 4 take the per-slot kernel, the plain map.
+def _tiles_per_group(rows, s_len, tile_w, sms=132):
+    """mfcd_mix_stream's T, tiles a warp, on a card of ``sms`` SMs."""
+    tw = tile_w or 128
+    tiles = -(-s_len // tw)
+    per = 128 // tw if 0 < tile_w < 128 else 1
+    while tile_w and per < 32 and rows * -(-tiles // (2 * per)) >= sms * 32:
+        per *= 2
+    return per
+
+
+def _quad_model(keys, epoch, count, arrays, k_bits, period, tile_w, folded,
+                per):
+    rows, s_len = arrays[0].shape
+    fresh = period == 1 or epoch % period == 0
+    outs = [torch.empty_like(a) for a in arrays]
+    words = [a.view(torch.int32).to(torch.int64) for a in arrays]
+    for r in range(rows):
+        k = keys[r] if folded else prng.fold_in_reference(keys[r], epoch)
+        k_prp, k_rho, k_tile = prng.split_reference(k, 3).unbind(-2)
+        c = int(count[r])
+        if s_len % 4 or fresh:
+            src = T._source_map(k, epoch, c, s_len, k_bits, period,
+                                tile_w or None, folded=True)
+        else:
+            rho = int(prng.bits_reference(k_rho, ())) % max(c, 1)
+            lim = c - rho
+            w_shift = tile_w.bit_length() - 1 if tile_w else 7
+            tw = 1 << w_shift
+            full = c >> w_shift if tile_w else 0
+            tile_src = torch.arange(-(-s_len // tw))
+            if full:   # one walk a tile
+                tile_src[:full] = T.epoch_permutation_reference(
+                    k_tile, torch.arange(full), full,
+                    max(k_bits - w_shift, 1)).to(torch.int64)
+            w = torch.arange(0, s_len, 4)
+            group = per << w_shift
+            st = tile_src[(w // group) * per + ((w % group) >> w_shift)]
+            p = (st << w_shift) + (w & (tw - 1))
+            src0 = torch.where(p + 3 < lim, p + rho, p + rho - c)
+            wrap = (p < lim) & (p + 3 >= lim)
+            off = src0 & 3
+            base = src0 - off
+            # the second aligned quad lies inside the row where it is read
+            assert (base[~wrap & (off > 0)] + 7 < s_len).all()
+            q4 = torch.arange(4)
+            pick = (base[:, None] + off[:, None] + q4).clamp(0, s_len - 1)
+            word = p[:, None] + q4
+            word = torch.where(word < lim, word + rho, word + rho - c)
+            src = torch.where(wrap[:, None], word, pick).reshape(-1)
+        for o, a in zip(outs, words):
+            o.view(torch.int32)[r] = a[r][src].to(torch.int32)
+    return outs
+
+
+class _FakeS2:
+    """The S2 entry on CPU tensors: reads the wrapper's arguments through
+    the pointers and writes the quad model's words to the outputs."""
+
+    def __init__(self, monkeypatch):
+        self.calls = 0
+        monkeypatch.setattr(prng, "_on", lambda who, dev: True)
+        monkeypatch.setattr(T, "_library", lambda: self)
+        monkeypatch.setattr(T._build, "stream_ptr", lambda dev: 0)
+
+    @staticmethod
+    def _view(ptr, n, ctype=None):
+        import ctypes
+
+        ctype = ctype or ctypes.c_int32
+        return torch.from_numpy(np.ctypeslib.as_array(
+            (ctype * n).from_address(ptr)))
+
+    def mfcd_mix_stream(self, keys, key_row, count, *args):
+        import ctypes
+
+        self.calls += 1
+        ins, dsts = args[:4], args[4:8]
+        (arrays, rows, s_len, epoch, period, k_bits, tile_w, folded,
+         _) = args[8:]
+        kv = self._view(keys, (rows - 1) * key_row + 2, ctypes.c_int64)
+        k = torch.stack([kv[r * key_row:r * key_row + 2]
+                         for r in range(rows)])
+        cnt = self._view(count, rows)
+        arrs = [self._view(ins[q], rows * s_len).reshape(rows, s_len)
+                for q in range(arrays)]
+        per = _tiles_per_group(rows, s_len, tile_w)
+        for q, o in enumerate(_quad_model(k, epoch, cnt, arrs, k_bits,
+                                          period, tile_w, folded, per)):
+            self._view(dsts[q], rows * s_len)[:] = o.reshape(-1)
+        return 0
+
+
+def _rho_keys(targets, counts, epoch, seed=0):
+    """Epochs keys (one a run) whose cheap epoch ``epoch`` rotates run r by
+    ``targets[r]`` (rho = bits(k_rho) % count), found among split(key(seed),
+    4096)."""
+    cands = prng.split_reference(prng.key(seed), 4096)
+    k_rho = prng.split_reference(prng.fold_in_reference(cands, epoch),
+                                 3)[:, 1]
+    rho_word = prng.bits_reference(k_rho, ())
+    out = []
+    for want, c in zip(targets, counts):
+        hit = torch.nonzero(rho_word % max(c, 1) == want)[0, 0]
+        out.append(cands[hit])
+    return torch.stack(out)
+
+
+def _jax_stream(arrays, keys, epoch, counts, k_bits, period, tile_w):
+    jk = jax.random.wrap_key_data(jnp.asarray(keys.numpy(), jnp.uint32))
+    one = lambda a, kk, c: J.mix_stream(
+        a, jax.random.fold_in(kk, epoch), epoch, c, k_bits, period=period,
+        tile_w=tile_w)
+    return jax.vmap(one)(tuple(jnp.asarray(a.numpy()) for a in arrays), jk,
+                         jnp.asarray(counts.numpy()))
+
+
+# (s_len, tile_w, counts, k_bits, rho targets): every rho the quad copy
+# aligns differently (0, 1, 3 and tile_w - 1), ragged lengths (S a multiple
+# of tile_w, as JAX's tile reshape needs, but not of a warp's 128 words or
+# of a group; S not a multiple of 4: the per-slot kernel), counts 0, 1 and
+# S, and k_bits 1, 17 and 32.
+QUAD_CASES = {
+    "aligned": (256, 8, [200, 201, 130, 256], 8, [0, 1, 3, 7]),
+    "ragged-group": (8 * 37, 8, [295, 296, 177, 160], 9, [0, 1, 3, 7]),
+    "ragged-tile-4": (4 * 75, 4, [299, 300, 177, 160], 9, [0, 1, 3, 3]),
+    "ragged-quad": (301, 0, [300, 301, 150, 99], 9, [0, 1, 3, 7]),
+    "counts-0-1-S": (128, 32, [0, 1, 128, 127], 7, [0, 0, 3, 31]),
+    "no-tiles": (200, 0, [199, 200, 3, 150], 8, [0, 1, 2, 149]),
+    "k-bits-1": (64, 8, [2, 1, 64, 60], 1, [0, 0, 1, 3]),
+    "k-bits-17": (512, 64, [500, 512, 300, 64], 17, [0, 1, 3, 63]),
+    "k-bits-32": (256, 128, [255, 256, 200, 130], 32, [0, 1, 3, 127]),
+}
+
+
+@pytest.mark.parametrize("arrays", [1, 2, 4])
+@pytest.mark.parametrize("case", list(QUAD_CASES))
+def test_quad_decomposition_bit_equal(case, arrays, monkeypatch):
+    """The wrapper's S2 launch through the quad model, a fresh and a cheap
+    epoch (and period 1: fresh every epoch), keys folded by the wrapper's
+    caller and not, against mix_stream_reference and JAX's mix_stream."""
+    s_len, tile_w, counts, k_bits, rhos = QUAD_CASES[case]
+    fake = _FakeS2(monkeypatch)
+    counts_t = torch.tensor(counts, dtype=torch.int32)
+    g = np.random.default_rng(s_len + arrays)
+    arrs = [torch.from_numpy(g.integers(-2**31, 2**31, (4, s_len)).astype(
+        np.int32)) for _ in range(arrays - 1)]
+    arrs.append(torch.from_numpy(g.standard_normal((4, s_len)).astype(
+        np.float32)))
+    for epoch, period in ((1, 4), (4, 4), (2, 1)):
+        keys = _rho_keys(rhos, counts, epoch)
+        want = T.mix_stream_reference(arrs, keys, epoch, counts_t, k_bits,
+                                      period=period, tile_w=tile_w or None)
+        jax_want = _jax_stream(arrs, keys, epoch, counts_t, k_bits, period,
+                               tile_w or None)
+        for a, b in zip(jax_want, want):
+            assert (np.asarray(a).view(np.int32)
+                    == b.view(torch.int32).numpy()).all()
+        calls = fake.calls
+        got = T.mix_stream(arrs, keys, epoch, counts_t, k_bits,
+                           period=period, tile_w=tile_w or None)
+        folded = T.mix_stream(arrs, prng.fold_in_reference(keys, epoch),
+                              epoch, counts_t, k_bits, period=period,
+                              tile_w=tile_w or None, folded=True)
+        assert fake.calls == calls + 2
+        for a, b, c in zip(got, folded, want):
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+            assert torch.equal(b.view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.parametrize("per", [2, 4, 8, 16, 32])
+def test_quad_decomposition_any_tiles_per_group(per):
+    """The group of T tiles a warp walks is an indexing of the tiles: every
+    T from the least (128 words) to 32 gives the plain version's bits."""
+    s_len, tile_w, counts, k_bits, rhos = QUAD_CASES["k-bits-17"]
+    counts_t = torch.tensor(counts, dtype=torch.int32)
+    arrs = [torch.arange(4 * s_len, dtype=torch.int32).reshape(4, s_len)]
+    keys = _rho_keys(rhos, counts, 1)
+    want = T.mix_stream_reference(arrs, keys, 1, counts_t, k_bits, period=4,
+                                  tile_w=tile_w)
+    got = _quad_model(keys, 1, counts_t, arrs, k_bits, 4, tile_w, False, per)
+    assert torch.equal(got[0], want[0])
+
+
+def test_tiles_per_group_follows_the_stream():
+    """T grows with the tiles of the launch: the least at the canonical
+    shape (every SM's warps busy), 16 at hard K = 50's 2^22 slots, 32 at
+    the sweep chunk's 120 runs."""
+    assert _tiles_per_group(4, 131_072, 64) == 2
+    assert _tiles_per_group(2, 1 << 22, 64) == 16
+    assert _tiles_per_group(120, 131_072, 64) == 32
+    assert _tiles_per_group(4, 131_072, 0) == 1
+    assert _tiles_per_group(1, 256, 8) == 16
