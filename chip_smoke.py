@@ -161,9 +161,11 @@ Phases, each of which raises on failure (nothing is caught and continued):
    bucket, the bench's sweep chunk, hard K = 10 and 50, scale_demo's
    n = m = 10,000), the fused epoch shuffle S2 over a fresh and a cheap
    epoch (from the epoch's folded keys, as the trainer calls it), the
-   keyed PRP S1 in its three walk modes and threefry T1's ``bits``,
-   ``fold_in`` and ``split``, each bit-equal to its plain version on the
-   card, S2 and T1 also to the
+   keyed PRP S1 at its forms (its three walk modes over one shared row
+   of int64 slots, and ``prp_splits``' two calls: a shared key over
+   int32 rows with int32 counts, and a key a row over int32 rows with an
+   int count at k = 30) and threefry T1's ``bits``, ``fold_in`` and
+   ``split``, each bit-equal to its plain version on the card and to the
    earlier design (one slot, one hash a thread) built from
    ``mfcd_tpu_torch/scripts/ab_baseline/`` and timed in turns against it;
    each with its device ms (CUDA events over calls queued behind a spin
@@ -174,7 +176,11 @@ Phases, each of which raises on failure (nothing is caught and continued):
    canonical ``run_config`` with ``train_runs_kernel`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
    trainer's epoch loop), 30 S2 and 30 K1 launches a call, s/run, and a
-   call with its stage spans synchronised.
+   call with its stage spans synchronised; (c) S1 at the calls the main
+   path makes: the canonical run, the bench bucket, the bench's sweep,
+   hard K = 10 and 50 and scale_demo's configuration run at one epoch
+   with S1's arguments recorded (``ab_shuffle_kernels.record_prp_calls``),
+   each call replayed as in (a).
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -324,7 +330,8 @@ ACC_MIN = 0.6
 # PEAK_INT32_OPS: a step of the keyed walk (3 rounds of mask, shift, xor,
 # mask, and the test's compare and select; its 3 multiplies and 3 adds can
 # issue as IMAD), a threefry2x32 hash (20 rotates and 20 xors; its 30 adds
-# can issue as IMAD) and a slot's rotation (a compare and a select).
+# can issue as IMAD) and a slot's rotation (a compare and a select), or
+# S1's start of a slot's exact or inverse walk (the same two).
 MIX_OPS, HASH_OPS, SLOT_OPS = 14, 40, 2
 
 
@@ -2719,52 +2726,26 @@ def k_axis_phase(smi):
     return dict(launches=launches, s_per_run=s_per_run, wall=wall)
 
 
-def walk_steps(key, slots, count, k_bits, mode="capped") -> torch.Tensor:
-    """The mixing steps each keyed walk of ``slots`` takes under ``key``
-    and ``count`` (the first mix included), as the plain walk of ``mode``
-    ("capped", "exact" or "inverse") applies them; int64, one per lane."""
-    from mfcd_tpu_torch.core.prng import M32
-    from mfcd_tpu_torch.ops import shuffle
-
-    muls, adds = shuffle._derive_constants(key)
-    step = (shuffle._unmix if mode == "inverse" else shuffle._mix)
-    cnt = torch.as_tensor(count, dtype=torch.int64,
-                          device=slots.device).unsqueeze(-1) & M32
-    x = slots.to(torch.int64) & M32
-    if mode != "capped":
-        cnt = torch.clamp(cnt, min=1)
-        x = torch.where(x < cnt, x, torch.zeros_like(x))
-    x = step(x, muls, adds, k_bits)
-    steps = torch.ones_like(x)
-    it = 0
-    while (mode != "capped" or it < 48) and bool((x >= cnt).any()):
-        out = x >= cnt
-        x = torch.where(out, step(x, muls, adds, k_bits), x)
-        steps += out.to(torch.int64)
-        it += 1
-    return steps
-
-
 def stream_ops(keys, epoch, counts, s_len, k_bits) -> int:
     """32-bit integer operations one S2 epoch needs on these inputs: the
     walks of a fresh epoch over every slot, or of a cheap one over the full
     tiles (one walk a tile), plus each slot's rotation test, plus the
     keys' hashes (11 a run)."""
     from mfcd_tpu_torch.core import prng
-    from mfcd_tpu_torch.scripts.ab_shuffle_kernels import PERIOD, TILE
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
 
     r = keys.shape[0]
     k_prp, _, k_tile = prng.split_reference(
         prng.fold_in_reference(keys, epoch), 3).unbind(-2)
     slots = torch.arange(s_len, device=keys.device)
-    if epoch % PERIOD == 0:
-        steps = int(walk_steps(k_prp, slots, counts, k_bits).sum())
+    if epoch % ab.PERIOD == 0:
+        steps = int(ab.walk_steps(k_prp, slots, counts, k_bits).sum())
     else:
-        t_bits = max(k_bits - TILE.bit_length() + 1, 1)
-        full = counts.to(torch.int64).unsqueeze(-1) // TILE
-        tiles = torch.arange(s_len // TILE, device=keys.device)
-        walked = walk_steps(k_tile, tiles, torch.clamp(full[:, 0], min=1),
-                            t_bits)
+        t_bits = max(k_bits - ab.TILE.bit_length() + 1, 1)
+        full = counts.to(torch.int64).unsqueeze(-1) // ab.TILE
+        tiles = torch.arange(s_len // ab.TILE, device=keys.device)
+        walked = ab.walk_steps(k_tile, tiles,
+                               torch.clamp(full[:, 0], min=1), t_bits)
         steps = int((walked * (tiles < full)).sum())
     return stream_int_ops(steps, r, s_len)
 
@@ -2781,10 +2762,42 @@ def stream_bytes(r: int, s_len: int, arrays: int) -> int:
     return 8 * r * s_len * arrays + 20 * r
 
 
-def prp_bytes(r: int, s_len: int) -> int:
-    """S1's bytes: one shared row of int64 slots read once, R rows of int32
-    written, a key and a count a row."""
-    return 8 * s_len + 4 * r * s_len + 20 * r
+def prp_bytes(r: int, s_len: int, slot_bytes: int = 8,
+              shared: bool = True) -> int:
+    """S1's bytes: the slots read once (one row of ``slot_bytes``-byte
+    slots where ``shared``, else R rows), R rows of int32 written, a key
+    and a count a row."""
+    return slot_bytes * s_len * (1 if shared else r) + 4 * r * s_len + 20 * r
+
+
+def walk_ops(mode: str, k_bits: int) -> int:
+    """ALU operations of one step of S1's walk of ``mode``: a mix step
+    (MIX_OPS), or an unmix step, whose rounds undo the xorshift in
+    ceil(k / shift) - 1 passes (2 at k = 17, 1 at k = 30, 0 at k = 1):
+    a shift each and one xor of them all (unmix's three-input xor, one
+    LOP3) between their two masks; and the test."""
+    if mode != "inverse":
+        return MIX_OPS
+    shift = max(k_bits // 2, 1)
+    passes = -(-k_bits // shift) - 1
+    return 3 * (2 + passes + (passes > 0)) + 2
+
+
+def prp_bound(mode: str, key, slots, count, k_bits):
+    """S1's bound at one call: its bytes (``prp_bytes``) against its
+    walks' steps on these inputs (``ab_shuffle_kernels.walk_steps``) at
+    ``walk_ops`` each, a start a slot and 6 hashes a key."""
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
+
+    r = int(np.prod(np.broadcast_shapes(
+        tuple(key.shape[:-1]), tuple(slots.shape[:-1]),
+        tuple(count.shape) if isinstance(count, torch.Tensor) else ())))
+    s_len = slots.shape[-1]
+    steps = int(ab.walk_steps(key, slots, count, k_bits, mode).sum())
+    ops = (walk_ops(mode, k_bits) * steps + SLOT_OPS * r * s_len
+           + HASH_OPS * 6 * key[..., 0].numel())
+    return bound_ms(prp_bytes(r, s_len, slots.element_size(),
+                              slots.shape[:-1].numel() == 1), int_ops=ops)
 
 
 def threefry_bound(n_out: int, words_out: int, r: int):
@@ -2843,28 +2856,11 @@ def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi, other):
                                     "baseline_host_ms", "plain_ms",
                                     "bound_ms")},
         bound_by=s2["cheap"]["bound_by"])
-    # S1 over one shared row of the stream's slots (int64, read once), each
-    # mode: R rows of int32 out, a key and a count a row.
-    slots = torch.arange(s_len, device=dev)
-    s1 = {}
-    for mode, name in (("capped", "epoch_permutation"),
-                       ("exact", "exact_prefix_permutation"),
-                       ("inverse", "exact_prefix_permutation_inverse")):
-        call = lambda: getattr(shuffle, name)(keys, slots, counts, k_bits)
-        plain = lambda: getattr(shuffle, name + "_reference")(
-            keys, slots, counts, k_bits)
-        got, want = call(), plain()
-        torch.cuda.synchronize()
-        if not same(got, want):
-            fail(f"[14a] {label}: S1 {mode} differs from its plain version")
-        steps = int(walk_steps(keys, slots, counts, k_bits, mode).sum())
-        bound, by = bound_ms(prp_bytes(r, s_len), int_ops=(
-            MIX_OPS * steps + SLOT_OPS * r * s_len))
-        dev_ms, host_ms = ab.queue_ms(call)
-        s1[mode] = dict(ms=dev_ms, host_ms=host_ms,
-                        plain_ms=time_ms(plain, 1, 3), bound_ms=bound,
-                        bound_by=by)
-    entry["shuffle_prp"] = s1
+    # S1 at its forms (ab.prp_forms): the three walks over one shared row
+    # of the stream's int64 slots, and prp_splits' two calls.
+    entry["shuffle_prp"] = {
+        name: prp_entry(other, *form)
+        for name, form in ab.prp_forms(keys, counts, s_len, k_bits).items()}
     # T1: the counter entry's bits and split, the hash entry's fold_in.
     entry["threefry2x32"] = {
         "bits": timed("T1 bits", lambda: prng.bits_reference(keys, (s_len,)),
@@ -2875,25 +2871,73 @@ def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi, other):
         "split": timed("T1 split", lambda: prng.split_reference(keys, 9),
                        threefry_bound(9 * r, 18 * r, r)),
     }
-    row = lambda v: (f"{v['ms']:.4f} ({v['host_ms']:.4f}) against "
-                     f"{v['baseline_ms']:.4f} ({v['baseline_host_ms']:.4f}); "
-                     f"plain {v['plain_ms']:.2f}, bound {v['bound_ms']:.6f} "
-                     f"{v['bound_by']}")
     log(f"[14a] {label} (R={r}, S={s_len}, count {count}, k={k_bits}, "
-        f"{arrays} array{'s' if arrays > 1 else ''}): S2, T1 bit-equal to "
-        f"their plain versions and the earlier build, S1 (3 modes) to its "
-        f"plain version; device ms a call (host issue ms), this build "
-        f"against the earlier: S2 fresh {row(s2['fresh'])}; S2 cheap "
-        f"{row(s2['cheap'])}; period mean "
+        f"{arrays} array{'s' if arrays > 1 else ''}): S1, S2, T1 bit-equal "
+        f"to their plain versions and the earlier build; device ms a call "
+        f"(host issue ms), this build against the earlier: S2 fresh "
+        f"{_row(s2['fresh'])}; S2 cheap {_row(s2['cheap'])}; period mean "
         f"{entry['mix_stream']['ms']:.4f} against "
         f"{entry['mix_stream']['baseline_ms']:.4f}; "
-        + "; ".join(f"T1 {k} {row(v)}"
+        + "; ".join(f"T1 {k} {_row(v)}"
                     for k, v in entry["threefry2x32"].items())
-        + "; S1 " + ", ".join(f"{k} {v['ms']:.4f} ({v['host_ms']:.4f}; "
-                              f"plain {v['plain_ms']:.2f}, bound "
-                              f"{v['bound_ms']:.6f} {v['bound_by']})"
-                              for k, v in s1.items()) + f" ms; {smi}")
+        + "; " + "; ".join(f"S1 {k} {_row(v)}"
+                           for k, v in entry["shuffle_prp"].items())
+        + f"; {smi}")
     return entry
+
+
+def _row(v) -> str:
+    return (f"{v['ms']:.4f} ({v['host_ms']:.4f}) against "
+            f"{v['baseline_ms']:.4f} ({v['baseline_host_ms']:.4f}); plain "
+            f"{v['plain_ms']:.2f}, bound {v['bound_ms']:.6f} {v['bound_by']}")
+
+
+PRP_MODES = {0: "capped", 1: "exact", 2: "inverse"}
+# The keys of an S1 entry that the kernels line carries.
+PRP_KEYS = ("ms", "host_ms", "baseline_ms", "baseline_host_ms", "plain_ms",
+            "bound_ms", "bound_by")
+
+
+def prp_entry(other, mode, key, slots, count, k_bits):
+    """One S1 call through ``ab_shuffle_kernels.prp_row`` (bit-equal to
+    its plain version and to the earlier design's build ``other``, timed
+    in turns against it: device and host issue ms), with its plain
+    version's ms and its bound."""
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
+
+    form = (mode, key, slots, count, k_bits)
+    row = ab.prp_row(other, form)
+    plain = ab.prp_calls(other, *form)[2]
+    bound, by = prp_bound(PRP_MODES[mode], key, slots, count, k_bits)
+    return dict(ab.describe(*form), ms=row["this_ms"],
+                host_ms=row["this_host_ms"], baseline_ms=row["other_ms"],
+                baseline_host_ms=row["other_host_ms"], ratio=row["ratio"],
+                host_ratio=row["host_ratio"], plain_ms=time_ms(plain, 1, 3),
+                bound_ms=bound, bound_by=by)
+
+
+def main_path_prp_phase(other, smi):
+    """[14c] S1 at the calls the main path makes: each configuration of
+    ``ab.record_prp_calls`` run at one epoch with S1's arguments recorded,
+    then each call replayed through ``prp_entry``.  Returns {configuration:
+    [entries]}."""
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
+
+    t0 = time.perf_counter()
+    recorded = ab.record_prp_calls(torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    out = {}
+    for label, calls in recorded.items():
+        if not calls:
+            log(f"[14c] {label}: no S1 call")
+        out[label] = [prp_entry(other, *call) for call in calls]
+        for e in out[label]:
+            log(f"[14c] {label}: {e['fn']}, key {e['key']} stride "
+                f"{e['key_stride']}, slots {e['slots']} {e['slots_dtype']} "
+                f"stride {e['slots_stride']}, count {e['count']}, k "
+                f"{e['k_bits']}: bit-equal; {_row(e)}; {smi}")
+    log(f"[14c] main-path S1 calls recorded in {wall:.1f} s")
+    return out
 
 
 def strict_loop_phase(smi):
@@ -2961,23 +3005,24 @@ def strict_loop_phase(smi):
 
 
 def shuffle_phase(dev, smi, main_launches):
-    """[14] S1, S2 and T1 at every shape of ``ab.SHUFFLE_CASES``, S2 and T1
-    in turns against the earlier design built from
-    ``scripts/ab_baseline/``, then the canonical epoch loop with no host
-    sync.  Returns (cases, loop)."""
+    """[14] S1, S2 and T1 at every shape of ``ab.SHUFFLE_CASES`` in turns
+    against the earlier design built from ``scripts/ab_baseline/``, the
+    canonical epoch loop with no host sync, then S1 at the main path's own
+    calls.  Returns (cases, loop, main-path S1 calls)."""
     from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
 
     t0 = time.perf_counter()
     other = ab.Baseline()
-    log(f"[14] the earlier S2 and T1 built in {time.perf_counter() - t0:.1f}"
+    log(f"[14] the earlier S1, S2, T1 built in {time.perf_counter() - t0:.1f}"
         f" s; launches of a canonical parameter_scan call ([4]): S2 "
         f"{main_launches['s2']}, T1 {main_launches['t1']}, S1 "
         f"{main_launches['s1']}")
     cases = [shuffle_case(dev, *case, smi, other)
              for case in ab.SHUFFLE_CASES]
     loop = strict_loop_phase(smi)
+    main_path = main_path_prp_phase(other, smi)
     log(f"[14] epoch shuffle and threefry: {time.perf_counter() - t0:.1f} s")
-    return cases, loop
+    return cases, loop, main_path
 
 
 def main() -> int:
@@ -3140,8 +3185,10 @@ def main() -> int:
     # [14] The epoch shuffle (S1, S2) and threefry (T1) against their plain
     # versions at the main path's shapes, and the canonical epoch loop with
     # no host sync.
-    shuffle_cases, strict_loop = shuffle_phase(dev, smi, main_launches)
+    shuffle_cases, strict_loop, prp_main = shuffle_phase(dev, smi,
+                                                         main_launches)
     canon_shuffle = shuffle_cases[0]
+    canon_prp = prp_main["canonical"][0]
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
@@ -3179,13 +3226,15 @@ def main() -> int:
         "replaces": "mfcd_tpu/ops/shuffle.py:57",
         "launches": main_launches["s1"],
         "max_abs_err": 0,
-        "ms": canon_shuffle["shuffle_prp"]["capped"]["ms"],
-        "host_ms": canon_shuffle["shuffle_prp"]["capped"]["host_ms"],
-        "plain_ms": canon_shuffle["shuffle_prp"]["capped"]["plain_ms"],
-        "bound_ms": canon_shuffle["shuffle_prp"]["capped"]["bound_ms"],
-        "bound_by": canon_shuffle["shuffle_prp"]["capped"]["bound_by"],
+        "redesigned": True,
+        # ms to bound_by: the capped walk over [14a]'s shared int64 row,
+        # as in every PR before; main_path_*: the canonical run's first S1
+        # call as it makes it.
+        **{k: canon_shuffle["shuffle_prp"]["capped"][k] for k in PRP_KEYS},
+        **{f"main_path_{k}": canon_prp[k] for k in PRP_KEYS},
         "library_ms": None,
         "modes": {c["label"]: c["shuffle_prp"] for c in shuffle_cases},
+        "main_path": prp_main,
     }, {
         "name": "mix_stream",
         "route": "cuda",

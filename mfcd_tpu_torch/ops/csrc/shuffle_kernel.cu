@@ -15,16 +15,19 @@
 // What bounds them on this card.  Bytes: S2 reads and writes every slot of
 // every stream array once (R x S x 8 bytes an array: 4.19 MB at the
 // canonical R = 4, S = 131,072, 67 MB at hard K = 50's 2 x 2^22); S1 reads
-// 8 bytes and writes 4 a slot.  Operations: a step of the keyed walk is 3
-// rounds of multiply, mask, shift, xor, add, mask and a test, 14 of them
-// on the integer ALU pipe alone (64 a clock per SM, 16.7e12 a second on
-// 132 SMs at 1.98 GHz; the multiplies and adds issue as IMAD on the FMA
-// pipe beside them).  A fresh epoch walks every slot, one or two steps
-// where count > 2^(k-1): about 25 ALU operations against 8 bytes a slot,
-// so its bytes bound it, but its gathers read scattered 4-byte words, a
-// 32-byte sector each.  A cheap epoch needs one walk a tile: its bytes
-// bound it.  Below some 10^6 slots the launch and each run's key words
-// bound both.
+// a slot (4 bytes as the samplers pass them, int32) and writes 4 bytes a
+// slot.  Operations: a step of the keyed walk is 3 rounds of multiply,
+// mask, shift, xor, add, mask and a test, 14 of them on the integer ALU
+// pipe alone (64 a clock per SM, 16.7e12 a second on 132 SMs at 1.98 GHz;
+// the multiplies and adds issue as IMAD on the FMA pipe beside them); a
+// step of the inverse walk has up to 2 xorshift passes a round, 20.  A
+// fresh epoch walks every slot, one or two steps where count > 2^(k-1):
+// about 25 ALU operations against 8 bytes a slot, so its bytes bound it,
+// but its gathers read scattered 4-byte words, a 32-byte sector each.  A
+// cheap epoch needs one walk a tile: its bytes bound it.  S1's walks at
+// the samplers' shapes (1.08 steps a slot at k = 30, 1.31 of the inverse
+// at k = 17) are under its bytes.  Below some 10^6 slots the launch and
+// each run's key words bound both.
 //
 // What S2's design does about it.
 // - One launch an epoch for every run and every array.  A grid sized from
@@ -59,10 +62,37 @@
 //   sync and no lane waiting for the slowest one.  Pad slots are written
 //   too, so the whole [R, S] array matches the plain version's.
 //
-// S1 (not redesigned): one slot a thread; it reads one row of slots for
-// every key where the slots broadcast (the tile PRP's, the fresh epoch's
-// iota), so nothing is expanded; 64-bit slot offsets.  The mask
-// (1 << k) - 1 is formed without a 32-bit shift by 32 when k = 32.
+// What S1's design does about it.
+// - It reads its arguments as the callers hold them: a key row stride (0
+//   where one key serves every row, as the split key does), a count as a
+//   scalar or an int32 / int64 tensor with its row stride (0 for one count
+//   broadcast), int32 or int64 slots with their row stride (0 for one
+//   shared row).  The wrapper builds nothing but the output.
+// - A grid from the SM count and the blocks an SM holds, rows on y (a loop
+//   over rows past 65,535), 32-bit slot arithmetic inside a row and one
+//   64-bit base a row.
+// - Key words once a block: threads 0-5 hash one word each, threads 0-2 of
+//   the inverse walk invert theirs (Newton), behind one barrier; once for
+//   all rows where one key serves every row.  (A warp's words, lanes 0-5
+//   and shuffles with no barrier, ran even or up to 14 % slower on an
+//   H100.)
+// - Four slots a thread: one 16-byte load of int32 slots (two of int64),
+//   the four walks' rounds interleaved in registers, one 16-byte store;
+//   the next quad's load issued before this one's walk, the row's first
+//   before its words.  S not a multiple of 4 or a row not 16-byte aligned
+//   loads and stores slot by slot, with the same walks.
+// - A landed slot is a fixed point, as in S2, so four walks in step give
+//   each slot its own walk's bits; the capped walk stops a quad at 48
+//   steps and takes the strided fallback slot by slot.
+// - The walk's tail: where the count is under 7/8 of 2^k, a warp's slots
+//   still out once at most 32 are left go one to a lane (walk4), so the
+//   warp does not wait for the slowest of 128 walks four to a lane (on an
+//   H100, walked in step to the end, the inverse walk at c / 2^k =
+//   0.61-0.76 took 1.22 to 1.36 times as long; above 7/8 the hand-out
+//   cost more than it saved).  Lane refill, a lane taking its next slot
+//   as soon as its walk lands, took 1.0 to 3.1 times as long: its 4-byte
+//   loads and stores scatter.
+// The mask (1 << k) - 1 is formed without a 32-bit shift by 32 when k = 32.
 
 #include <cuda_runtime.h>
 
@@ -73,7 +103,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kFillBlocks = 2112;  // 132 SMs x 16 blocks: the card's fill
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWalkIters = 48;     // mfcd_tpu/ops/shuffle.py::_WALK_ITERS
 constexpr int kRounds = 3;
 
@@ -114,13 +145,17 @@ __device__ __forceinline__ uint32_t mix(uint32_t x, const Mixer& m) {
   return x;
 }
 
+// The inverse of mix.  A round's xorshift x ^= x >> shift is undone by
+// ceil(k / shift) - 1 passes of x = y ^ (x >> shift), at most 2 since shift
+// = max(k / 2, 1); two passes are y ^ (y >> shift) ^ (y >> 2 shift), one
+// three-input xor.
 __device__ __forceinline__ uint32_t unmix(uint32_t y, const Mixer& m) {
 #pragma unroll
   for (int r = kRounds - 1; r >= 0; --r) {
     y = (y - m.add[r]) & m.mask;
-    uint32_t x = y;
-    for (int it = 0; it < m.unmix_iters; ++it) x = y ^ (x >> m.shift);
-    y = (x * m.inv[r]) & m.mask;
+    const uint32_t once = m.unmix_iters > 0 ? y >> m.shift : 0u;
+    const uint32_t twice = m.unmix_iters > 1 ? y >> (2 * m.shift) : 0u;
+    y = ((y ^ once ^ twice) * m.inv[r]) & m.mask;
   }
   return y;
 }
@@ -142,57 +177,268 @@ __device__ __forceinline__ uint32_t capped_walk(uint32_t slot, uint32_t count,
   return x;
 }
 
-// The six mixing words of a key (_derive_constants: bits(key, (6,))), into
-// words[t] by thread t < 6.
-__device__ __forceinline__ void derive_word(uint32_t k0, uint32_t k1, int t,
-                                            uint32_t* words) {
-  if (t < 2 * kRounds) words[t] = mfcd::bits_at(k0, k1, t);
+// ---------------------------------------------------------------------------
+// S1
+
+// One S1 launch.  Row l (of `rows`) walks the n slots at slots + l *
+// slot_row (int32 or int64 as Slot; slot_row 0: one row of slots for every
+// row) under the key at keys + l * key_row (int64 words; key_row 0: one key
+// for every row) and the count count_value (count_bytes 0) or the int32 /
+// int64 at count + l * count_row, into int32 out + l * n.  vec: 16-byte
+// loads and stores (n % 4 == 0, slots and out 16-byte aligned at every
+// row).
+struct PrpArgs {
+  const int64_t* keys;
+  long long key_row;
+  const void* count;
+  long long count_row;
+  uint32_t count_value;
+  int count_bytes;
+  const void* slots;
+  long long slot_row;
+  int32_t* out;
+  unsigned rows;
+  unsigned n;
+  int k_bits;
+  int vec;
+};
+
+__device__ __forceinline__ uint32_t row_count(const PrpArgs& a,
+                                              unsigned row) {
+  const long long at = static_cast<long long>(row) * a.count_row;
+  if (a.count_bytes == 4) {
+    return static_cast<uint32_t>(static_cast<const int32_t*>(a.count)[at]);
+  }
+  if (a.count_bytes == 8) {
+    return static_cast<uint32_t>(static_cast<const int64_t*>(a.count)[at]);
+  }
+  return a.count_value;
 }
 
-// S1: one keyed PRP walk per slot, a key and a count per row of slots.
-__global__ void __launch_bounds__(kThreads)
-    prp_kernel(const int64_t* keys, const int64_t* count,
-               const int64_t* slots, int64_t slot_row, int32_t* out,
-               int64_t n, int blocks_per_row, int mode, int k_bits) {
-  __shared__ uint32_t words[2 * kRounds];
-  __shared__ uint32_t inv[kRounds];
-  const int64_t row = blockIdx.x / blocks_per_row;
-  const int part = blockIdx.x % blocks_per_row;
+// A key's Mixer (_derive_constants: bits(key, (6,))), derived once a block:
+// thread t < 6 hashes word t, threads 0-2 of the inverse walk invert theirs
+// (Newton), into shared memory behind a barrier.  Every thread of the block
+// calls it.
+template <int kMode>
+__device__ __forceinline__ Mixer block_mixer(const int64_t* key, int k_bits) {
+  __shared__ uint32_t words[3 * kRounds];
+  __syncthreads();  // the previous row's words have been read
   const int t = threadIdx.x;
-  derive_word(static_cast<uint32_t>(keys[2 * row]),
-              static_cast<uint32_t>(keys[2 * row + 1]), t, words);
-  __syncthreads();
-  if (mode == kInverse) {
-    if (t < kRounds) inv[t] = inverse_odd(words[t] | 1u);
-    __syncthreads();
-  }
-  const Mixer m = make_mixer(words, mode == kInverse ? inv : nullptr, k_bits);
-  const uint32_t c = static_cast<uint32_t>(count[row]);
-  const uint32_t c1 = c > 1u ? c : 1u;
-  const int64_t base = row * n;
-  const int64_t step = static_cast<int64_t>(blocks_per_row) * kThreads;
-  for (int64_t s = static_cast<int64_t>(part) * kThreads + t; s < n;
-       s += step) {
-    const uint32_t v = static_cast<uint32_t>(slots[row * slot_row + s]);
-    uint32_t x;
-    if (mode == kCapped) {
-      x = capped_walk(v, c, m);
-    } else if (mode == kExact) {
-      x = mix(v < c1 ? v : 0u, m);
-      while (x >= c1) x = mix(x, m);
-    } else {
-      x = unmix(v < c1 ? v : 0u, m);
-      while (x >= c1) x = unmix(x, m);
+  if (t < 2 * kRounds) {
+    const uint32_t w = mfcd::bits_at(static_cast<uint32_t>(key[0]),
+                                     static_cast<uint32_t>(key[1]), t);
+    words[t] = w;
+    if (kMode == kInverse && t < kRounds) {
+      words[2 * kRounds + t] = inverse_odd(w | 1u);
     }
-    out[base + s] = static_cast<int32_t>(x);
+  }
+  __syncthreads();
+  return make_mixer(words, kMode == kInverse ? words + 2 * kRounds : nullptr,
+                    k_bits);
+}
+
+template <int kMode>
+__device__ __forceinline__ uint32_t step(uint32_t x, const Mixer& m) {
+  return kMode == kInverse ? unmix(x, m) : mix(x, m);
+}
+
+__device__ __forceinline__ bool any_out(const uint32_t (&x)[4], uint32_t c) {
+  return (x[0] >= c) | (x[1] >= c) | (x[2] >= c) | (x[3] >= c);
+}
+
+// The position of the j-th (from 0) set bit of v, which has more than j.
+__device__ __forceinline__ unsigned nth_set(unsigned v, unsigned j) {
+  unsigned pos = 0;
+#pragma unroll
+  for (unsigned w = 16; w > 0; w >>= 1) {
+    const unsigned low = __popc(v & ((1u << w) - 1u));
+    if (j >= low) {
+      j -= low;
+      v >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// The walks of a lane's 4 slots (x: their values as uint32; `has`: the lane
+// holds a quad) under count c, the rounds of the four interleaved; a landed
+// slot is a fixed point, so each ends with its own walk's bits.  Every lane
+// of the warp calls it.
+// - Capped: mix, at most 48 more steps, the strided fallback.
+// - Exact and inverse: slots at or above max(c, 1) start from 0, no cap.
+//   A walk takes 2^k / c steps on average, but four slots walked in step
+//   keep their warp until the slowest of 128 lands (at c / 2^k = 0.76, 4.3
+//   steps for 1.31).  So where c is under 7/8 of 2^k: one step of all
+//   four; while more than 32 of the warp's 128 slots are still out,
+//   another; then the slots still out go one to a lane (4 ballots give
+//   each its place, shuffles carry it there and back) and each lane walks
+//   its one alone.  Above 7/8 the tail is short and the hand-out costs
+//   more than it saves.
+template <int kMode>
+__device__ __forceinline__ void walk4(uint32_t (&x)[4], uint32_t c, bool has,
+                                      const Mixer& m) {
+  const uint32_t c1 = c > 1u ? c : 1u;
+  if constexpr (kMode == kCapped) {
+    uint32_t v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = x[k];
+      x[k] = mix(x[k], m);
+    }
+    for (int it = 0; it < kWalkIters && has && any_out(x, c); ++it) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t y = mix(x[k], m);
+        x[k] = x[k] >= c ? y : x[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (x[k] >= c) x[k] = (v[k] * m.mul[0]) % c1;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x[k] = step<kMode>(x[k] < c1 ? x[k] : 0u, m);
+  if (8ull * c1 >= 7ull * (m.mask + 1ull)) {
+    while (has && any_out(x, c1)) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t y = step<kMode>(x[k], m);
+        x[k] = x[k] >= c1 ? y : x[k];
+      }
+    }
+    return;
+  }
+  for (;;) {
+    unsigned out[4], base[4], total = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      out[k] = __ballot_sync(kFull, has && x[k] >= c1);
+      base[k] = total;
+      total += __popc(out[k]);
+    }
+    if (total == 0) return;
+    if (total > 32) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t y = step<kMode>(x[k], m);
+        x[k] = x[k] >= c1 ? y : x[k];
+      }
+      continue;
+    }
+    // Lane p takes the slot at place p (places in the order of k, then of
+    // lane): the (p - base[k])-th lane of out[k] holds it.
+    const unsigned lane = threadIdx.x & 31;
+    int kind = -1;
+    unsigned held = 0, rank = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (lane >= base[k] && lane - base[k] < __popc(out[k])) {
+        kind = k;
+        held = out[k];
+        rank = lane - base[k];
+      }
+    }
+    const unsigned src = kind >= 0 ? nth_set(held, rank) : lane;
+    uint32_t y = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t v = __shfl_sync(kFull, x[k], src);
+      if (k == kind) y = v;
+    }
+    if (kind >= 0) {
+      do {
+        y = step<kMode>(y, m);
+      } while (y >= c1);
+    }
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned place = (base[k] + __popc(out[k] & below)) & 31u;
+      const uint32_t v = __shfl_sync(kFull, y, place);
+      if ((out[k] >> lane) & 1u) x[k] = v;
+    }
+    return;
+  }
+}
+
+// Quad q's 4 slot values (slots 4q to 4q + 3; past n: 0, walked and not
+// stored).
+template <typename Slot>
+__device__ __forceinline__ void load4(const Slot* in, unsigned q, unsigned n,
+                                      bool vec, uint32_t (&x)[4]) {
+  if (vec && sizeof(Slot) == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(in) + q);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else if (vec) {
+    const ulonglong2* p = reinterpret_cast<const ulonglong2*>(in) + 2 * q;
+    const ulonglong2 lo = __ldg(p), hi = __ldg(p + 1);
+    x[0] = static_cast<uint32_t>(lo.x);
+    x[1] = static_cast<uint32_t>(lo.y);
+    x[2] = static_cast<uint32_t>(hi.x);
+    x[3] = static_cast<uint32_t>(hi.y);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned s = 4 * q + k;
+      x[k] = s < n ? static_cast<uint32_t>(in[s]) : 0u;
+    }
+  }
+}
+
+__device__ __forceinline__ void store4(int32_t* out, unsigned q, unsigned n,
+                                       bool vec, const uint32_t (&x)[4]) {
+  if (vec) {
+    reinterpret_cast<uint4*>(out)[q] = make_uint4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * q + k < n) out[4 * q + k] = static_cast<int32_t>(x[k]);
+    }
+  }
+}
+
+// S1 in quads: thread t of a row's grid walks quads t, t + stride, ...,
+// the lanes of a warp in step (the walk's ballots and shuffles need all
+// 32), each quad's slots loaded before the walk of the one before it (the
+// row's first before its words are derived).  A block with no quad in a
+// row has none in any row and leaves at once.
+template <int kMode, typename Slot>
+__global__ void __launch_bounds__(kThreads) prp_quads(PrpArgs a) {
+  const unsigned quads = (a.n + 3) / 4;
+  const unsigned t = blockIdx.x * kThreads + threadIdx.x;
+  if (t - threadIdx.x >= quads) return;
+  const unsigned stride = gridDim.x * kThreads;
+  const bool vec = a.vec != 0;
+  Mixer m;
+  for (unsigned row = blockIdx.y; row < a.rows; row += gridDim.y) {
+    const Slot* in = static_cast<const Slot*>(a.slots) + row * a.slot_row;
+    int32_t* out = a.out + static_cast<long long>(row) * a.n;
+    uint32_t next[4] = {0u, 0u, 0u, 0u};
+    bool more = t < quads;
+    if (more) load4(in, t, a.n, vec, next);
+    if (row == blockIdx.y || a.key_row != 0) {
+      m = block_mixer<kMode>(a.keys + row * a.key_row, a.k_bits);
+    }
+    const uint32_t c = row_count(a, row);
+    for (unsigned q = t; q - (t & 31u) < quads; q += stride) {
+      uint32_t x[4] = {next[0], next[1], next[2], next[3]};
+      const bool has = more;
+      more = q + stride < quads;
+      if (more) load4(in, q + stride, a.n, vec, next);
+      walk4<kMode>(x, c, has, m);
+      if (has) store4(out, q, a.n, vec, x);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // S2
-
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct StreamArgs {
   const uint32_t* in[4];
@@ -402,13 +648,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int blocks_per_row(int64_t rows, int64_t n) {
-  const int64_t need = (n + kThreads - 1) / kThreads;
-  const int64_t fill = (kFillBlocks + rows - 1) / rows;
-  const int64_t b = need < fill ? need : fill;
-  return static_cast<int>(b > 1 ? b : 1);
-}
-
 struct Card {
   int sms;
   int l2_bytes;
@@ -437,6 +676,36 @@ int resident(Kernel kernel) {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0);
   return n > 0 ? n : 1;
+}
+
+// S1's launch: rows on y (at most 65,535, each block looping over rows past
+// that), as many blocks a row on x as the card holds at once shared among
+// them, and no more than a row has quads.
+template <int kMode, typename Slot>
+void launch_prp(cudaStream_t stream, const PrpArgs& a) {
+  static const int per_sm = resident(prp_quads<kMode, Slot>);
+  const long long fill = static_cast<long long>(card().sms) * per_sm;
+  const long long gy = a.rows < 65535u ? a.rows : 65535;
+  const long long fit = fill / gy > 1 ? fill / gy : 1;
+  const long long need = ((a.n + 3) / 4 + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(need < fit ? need : fit),
+                  static_cast<unsigned>(gy));
+  prp_quads<kMode, Slot><<<grid, kThreads, 0, stream>>>(a);
+}
+
+template <typename Slot>
+void launch_prp_mode(cudaStream_t stream, const PrpArgs& a, int mode) {
+  switch (mode) {
+    case kCapped:
+      launch_prp<kCapped, Slot>(stream, a);
+      break;
+    case kExact:
+      launch_prp<kExact, Slot>(stream, a);
+      break;
+    default:
+      launch_prp<kInverse, Slot>(stream, a);
+      break;
+  }
 }
 
 // The quad kernel's launch: x blocks a row, y rows at once.  A fresh
@@ -489,24 +758,49 @@ const char* mfcd_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// S1 on `stream`: out[l, i] = the PRP of slots[l * slot_row + i] (int64;
-// slot_row n, or 0 where every row permutes the same slots) under keys[l]
-// (int64 words [rows, 2]) and count[l] (int64 [rows]), on [0, 2^k_bits);
-// mode 0 the capped walk (epoch_permutation), 1 the exact walk
-// (exact_prefix_permutation), 2 the exact inverse walk.  All contiguous.
+// S1 on `stream`: out[l, i] = the PRP of slot i of row l, on [0, 2^k_bits)
+// restricted to [0, count), for `rows` rows of n slots.  keys: int64
+// words, row l's at keys + l * key_row (0: one key for every row); count:
+// count_value (count_bytes 0) or the int32 (4) / int64 (8) at count + l *
+// count_row; slots: int32 (slot_bytes 4) or int64 (8), row l's at slots +
+// l * slot_row elements; out: int32 [rows, n], contiguous.  mode 0 the
+// capped walk (epoch_permutation), 1 the exact walk
+// (exact_prefix_permutation), 2 the exact inverse walk.
 // Returns the launch's error.
-int mfcd_prp(const int64_t* keys, const int64_t* count, const int64_t* slots,
-             long long slot_row, int32_t* out, long long rows, long long n,
-             int mode, int k_bits, void* stream) {
-  if (rows < 0 || n < 0 || mode < kCapped || mode > kInverse || k_bits < 1 ||
-      k_bits > 32 || !(slot_row == 0 || slot_row == n)) {
+int mfcd_prp(const int64_t* keys, long long key_row, const void* count,
+             long long count_row, int count_bytes, long long count_value,
+             const void* slots, long long slot_row, int slot_bytes,
+             int32_t* out, long long rows, long long n, int mode, int k_bits,
+             void* stream) {
+  if (rows < 0 || rows >= (1LL << 32) || n < 0 || n >= (1LL << 31) ||
+      mode < kCapped || mode > kInverse || k_bits < 1 || k_bits > 32 ||
+      key_row < 0 || count_row < 0 || slot_row < 0 ||
+      !(count_bytes == 0 || count_bytes == 4 || count_bytes == 8) ||
+      !(slot_bytes == 4 || slot_bytes == 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  const int bpr = blocks_per_row(rows, n);
-  prp_kernel<<<static_cast<unsigned>(rows * bpr), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      keys, count, slots, slot_row, out, n, bpr, mode, k_bits);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(slots) |
+                       reinterpret_cast<uintptr_t>(out);
+  PrpArgs a = {keys,
+               key_row,
+               count,
+               count_row,
+               static_cast<uint32_t>(count_value),
+               count_bytes,
+               slots,
+               slot_row,
+               out,
+               static_cast<unsigned>(rows),
+               static_cast<unsigned>(n),
+               k_bits,
+               n % 4 == 0 && at % 16 == 0 && slot_row * slot_bytes % 16 == 0};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (slot_bytes == 4) {
+    launch_prp_mode<int32_t>(st, a, mode);
+  } else {
+    launch_prp_mode<int64_t>(st, a, mode);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,6 @@ import ctypes
 import os
 import sys
 
-import numpy as np
 import torch
 
 from mfcd_tpu_torch.core import prng
@@ -80,17 +79,20 @@ def _walk(x, step, count_u, max_iters=None):
     return x
 
 
+_S1_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _S2_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
             + [ctypes.c_void_p] * 8 + [ctypes.c_int]
             + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
             + [ctypes.c_void_p])
+_WORDS = (torch.int32, torch.int64)   # the slot and count types S1 reads
 
 
 def _library():
-    _build.bind("shuffle_kernel.cu", "mfcd_prp",
-                [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
-                + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                + [ctypes.c_void_p])
+    _build.bind("shuffle_kernel.cu", "mfcd_prp", _S1_ARGS)
     return _build.bind("shuffle_kernel.cu", "mfcd_mix_stream", _S2_ARGS)
 
 
@@ -100,50 +102,88 @@ def _check_k_bits(who: str, k_bits: int) -> None:
 
 
 def _lead(*shapes) -> tuple:
-    """The broadcast of ``shapes``.  numpy's: ``torch.broadcast_shapes``
-    imports the symbolic-shape machinery on first use, seconds of host
-    time in a process's first launch."""
-    return tuple(int(n) for n in np.broadcast_shapes(*shapes))
+    """The broadcast of ``shapes``, in plain Python: numpy's costs S1's
+    wrapper microseconds a call, and ``torch.broadcast_shapes`` imports
+    the symbolic-shape machinery on first use, seconds of host time in a
+    process's first launch."""
+    out = list(max(shapes, key=len))
+    for shape in shapes:
+        for i in range(1, len(shape) + 1):
+            d = shape[-i]
+            if d != 1 and out[-i] != d:
+                if out[-i] != 1:
+                    raise ValueError(f"shapes {[tuple(s) for s in shapes]} "
+                                     f"do not broadcast")
+                out[-i] = d
+    return tuple(out)
+
+
+def _rows(t: torch.Tensor, lead: tuple, rows: int, inner: tuple):
+    """``t [..., *inner]`` read as the ``rows`` rows of ``lead``: (tensor,
+    row stride in elements), 0 where one row serves every row.  ``t``
+    itself wherever one stride walks its rows (a view); a copy only where
+    it broadcasts over some leading dims and not others."""
+    dims = t.dim() - len(inner)
+    if rows == 1 or t.shape[:dims].numel() == 1:
+        return t, 0
+    if dims == len(lead) == 1:
+        return t, t.stride(0)
+    v = t.expand(lead + inner)
+    try:
+        v = v.view((rows,) + inner)
+    except RuntimeError:
+        v = v.reshape((rows,) + inner)
+    return v, v.stride(0)
 
 
 def _prp_launch(who: str, key: torch.Tensor, slots: torch.Tensor, count,
                 k_bits: int, mode: int) -> torch.Tensor:
     """S1: one keyed PRP walk per slot of ``slots [..., N]``, keys
     ``[..., 2]`` and ``count`` (int or ``[...]``) broadcast against its
-    leading dims; int32 ``[..., N]``."""
+    leading dims; int32 ``[..., N]``.  S1 reads the key words (int64),
+    the slots and a count tensor (int32 or int64) where they lie, by
+    pointer and row stride, and an int count by value: the launch builds
+    nothing but the output (other types are converted, a slot or key row
+    that is not contiguous is copied)."""
     global PRP_LAUNCHES
     _check_k_bits(who, k_bits)
     dev = slots.device
     if slots.dim() < 1 or key.shape[-1:] != (2,):
         raise ValueError(f"{who}: slots {tuple(slots.shape)} and key "
                          f"{tuple(key.shape)}, expected [..., N], [..., 2]")
-    if isinstance(count, torch.Tensor):
-        if count.device != dev or key.device != dev:
-            raise ValueError(f"{who}: key, slots and count must share "
-                             f"{dev}")
-        lead = _lead(key.shape[:-1], slots.shape[:-1], count.shape)
-        cnt = count.to(torch.int64).expand(lead)
-    else:
-        if key.device != dev:
-            raise ValueError(f"{who}: key and slots must share {dev}")
-        lead = _lead(key.shape[:-1], slots.shape[:-1])
-        cnt = torch.full(lead, int(count), dtype=torch.int64, device=dev)
+    on_tensor = isinstance(count, torch.Tensor)
+    if key.device != dev or (on_tensor and count.device != dev):
+        raise ValueError(f"{who}: key, slots and count must share {dev}")
     n = slots.shape[-1]
-    keys = key.to(torch.int64).expand(lead + (2,)).reshape(-1, 2).contiguous()
-    cnt = cnt.reshape(-1).contiguous()
-    flat = slots.to(torch.int64)
-    if slots.shape[:-1].numel() == 1:   # one row of slots serves every key
-        flat, slot_row = flat.reshape(n).contiguous(), 0
-    else:
-        flat = flat.expand(lead + (n,)).reshape(-1, n).contiguous()
-        slot_row = n
+    if n >= 2 ** 31:
+        raise ValueError(f"{who}: {n} slots a row, S1 takes below 2^31")
+    lead = _lead(key.shape[:-1], slots.shape[:-1],
+                 count.shape if on_tensor else ())
     out = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
+    rows = out.numel() // n
+    if key.dtype != torch.int64:
+        key = key.to(torch.int64)
+    if key.stride(-1) != 1:
+        key = key.contiguous()
+    if slots.dtype not in _WORDS:
+        slots = slots.to(torch.int64)
+    if n > 1 and slots.stride(-1) != 1:
+        slots = slots.contiguous()
+    keys, key_row = _rows(key, lead, rows, (2,))
+    slots, slot_row = _rows(slots, lead, rows, (n,))
+    if on_tensor:
+        if count.dtype not in _WORDS:
+            count = count.to(torch.int64)
+        count, count_row = _rows(count, lead, rows, ())
+        counted = (count.data_ptr(), count_row, count.element_size(), 0)
+    else:
+        counted = (None, 0, 0, int(count) & M32)
     lib = _library()
-    err = lib.mfcd_prp(keys.data_ptr(), cnt.data_ptr(), flat.data_ptr(),
-                       slot_row, out.data_ptr(), keys.shape[0], n, mode,
-                       k_bits, torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.mfcd_prp(keys.data_ptr(), key_row, *counted, slots.data_ptr(),
+                       slot_row, slots.element_size(), out.data_ptr(), rows,
+                       n, mode, k_bits, _build.stream_ptr(dev))
     _build.raise_on(lib, err, f"{who} (S1)")
     PRP_LAUNCHES += 1
     return out

@@ -1,4 +1,4 @@
-// The earlier design of S2 and T1 (one slot, one hash a thread), kept
+// The earlier design of S1, S2 and T1 (one slot, one hash a thread), kept
 // unchanged for scripts/ab_shuffle_kernels.py and chip_smoke.py [14a]
 // to time the kernels of ops/csrc/ against; no wrapper of the port calls it.
 //

@@ -1,7 +1,8 @@
 """chip_smoke.py's bounds for the integer kernels S1, S2 and T1: the card's
 32-bit integer rate (PEAK_INT32_OPS, from the SM count and the top SM
-clock), bound_ms's integer branch, and which side bounds each kernel at the
-six shapes of [14] (``ab_shuffle_kernels.SHUFFLE_CASES``).
+clock), bound_ms's integer branch, S1's bytes and steps by form and mode,
+and which side bounds each kernel at the six shapes of [14]
+(``ab_shuffle_kernels.SHUFFLE_CASES``).
 
 The walks' steps are counted on a sample of 4,096 slots a run (the keyed
 map is pointwise, so a sample's mean step count is the whole row's to a
@@ -20,6 +21,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
 from mfcd_tpu_torch.core import prng  # noqa: E402
+from mfcd_tpu_torch.ops import shuffle  # noqa: E402
 from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab  # noqa: E402
 
 torch.set_num_threads(1)
@@ -83,7 +85,7 @@ def _sides(label, r, s_len, count, k_bits, arrays):
                                       dtype=torch.int32), min=1)
     slots = torch.from_numpy(np.sort(np.random.default_rng(0).choice(
         s_len, SAMPLE, replace=False)))
-    mean_steps = lambda k: float(cs.walk_steps(
+    mean_steps = lambda k: float(ab.walk_steps(
         k, slots, counts, k_bits).double().mean()) * r * s_len
     k_prp = prng.split_reference(prng.fold_in_reference(keys, 0),
                                  3)[..., 0, :]
@@ -95,12 +97,12 @@ def _sides(label, r, s_len, count, k_bits, arrays):
                                   3)[..., 2, :]
     full = counts.to(torch.int64).unsqueeze(-1) // ab.TILE
     tiles = torch.arange(s_len // ab.TILE)
-    walked = cs.walk_steps(k_tile, tiles, torch.clamp(full[:, 0], min=1),
+    walked = ab.walk_steps(k_tile, tiles, torch.clamp(full[:, 0], min=1),
                            max(k_bits - ab.TILE.bit_length() + 1, 1))
     cheap = cs.bound_ms(cs.stream_bytes(r, s_len, arrays),
                         int_ops=cs.stream_int_ops(
                             int((walked * (tiles < full)).sum()), r, s_len))
-    s1 = cs.bound_ms(cs.prp_bytes(r, s_len),
+    s1 = cs.bound_ms(cs.prp_bytes(r, s_len, 8, True),
                      int_ops=cs.MIX_OPS * mean_steps(keys)
                      + cs.SLOT_OPS * r * s_len)
     return dict(fresh=fresh, cheap=cheap, s1=s1,
@@ -135,3 +137,78 @@ def test_which_side_bounds_at_the_six_shapes(case, h100):
     # a cheap epoch is its bytes: every word read and written once
     assert got["cheap"][0] == cs.stream_bytes(*case[1:3], case[5]) \
         / cs.PEAK_BYTES_PER_S * 1e3
+
+
+def test_s1_walk_ops_by_mode():
+    # a mix step: 3 rounds of mask, shift, xor, mask and the test; an
+    # unmix step: ceil(k / shift) - 1 passes a round, a shift each and one
+    # xor of them all, between its two masks, and the test
+    assert [cs.walk_ops(m, 17) for m in ("capped", "exact")] == [14, 14]
+    assert [cs.walk_ops("inverse", k) for k in (1, 2, 3, 17, 30, 32)] == [
+        8, 14, 17, 17, 14, 14]
+
+
+def test_s1_bytes_by_form():
+    r, s = 4, 131_072
+    # one shared row of int64 slots, and a row of int32 slots a run
+    assert cs.prp_bytes(r, s, 8, True) == 8 * s + 4 * r * s + 20 * r
+    assert cs.prp_bytes(r, s, 4, False) == 8 * r * s + 20 * r
+
+
+# prp_splits' forms bound by their walks: the canonical shape's inverse
+# walk, whose 39 % of padding slots (count 80,000 of 131,072) all walk from
+# 0, a long walk under that shape's shared key (2.58 unmix steps a slot on
+# average, 17 operations each, against 8 bytes).
+SPLIT_OPS = {("canonical", "split inverse")}
+
+
+@pytest.mark.parametrize("case", ab.SHUFFLE_CASES, ids=lambda c: c[0])
+def test_s1_split_forms_bound_sides(case, h100):
+    """prp_splits' two forms (``ab.prp_forms``) at the six shapes: their
+    walks (1.3 unmix steps of 17 operations a slot at c / 2^k = 0.76, 1.08
+    mix steps of 14 at k = 30, fewer at the wider counts) mostly stay under
+    8 bytes a slot, so their bytes bound them.  On a sample of slots: the
+    steps and the bytes both scale with the slots, so the side does not
+    change, and a bytes bound scales by S / SAMPLE."""
+    label, r, s_len, count, k_bits, _ = case
+    keys = prng.split_reference(prng.key(r), r)
+    counts = torch.clamp(torch.tensor([count - 13 * i for i in range(r)],
+                                      dtype=torch.int32), min=1)
+    forms = ab.prp_forms(keys, counts, SAMPLE, k_bits)
+    cols = torch.from_numpy(np.sort(np.random.default_rng(1).choice(
+        s_len, SAMPLE, replace=False)))
+    c = counts.to(torch.int64).unsqueeze(-1)
+    y = torch.where(cols < c, (cols + 7 * torch.arange(r).unsqueeze(-1)) % c,
+                    0).to(torch.int32)
+    rank = shuffle.exact_prefix_permutation_inverse_reference(
+        keys[0], y, counts, k_bits)
+    for name, slots in (("split inverse", y), ("split exact", rank)):
+        mode, key, _, cnt, k = forms[name]
+        ms, by = cs.prp_bound(cs.PRP_MODES[mode], key, slots, cnt, k)
+        assert by == (OPS if (label, name) in SPLIT_OPS else BYTES), name
+        if by == BYTES:
+            assert ms * s_len / SAMPLE == pytest.approx(
+                cs.prp_bytes(r, s_len, 4, False) / cs.PEAK_BYTES_PER_S
+                * 1e3, rel=0.01)
+
+
+@pytest.mark.parametrize("k_bits,count", [(12, 3000), (17, 80_000)])
+def test_s1_probe_rows_walk_one_step(k_bits, count):
+    """``ab.walk_probe``'s one-step rows: every slot is below its row's
+    count and its inverse walk lands after one unmix (the plain walk's
+    result is one unmix of it), as ``ab.walk_steps`` counts it."""
+    r, s_len = 3, 4096
+    keys = prng.split_reference(prng.key(r), r)
+    counts = torch.tensor([count - 13 * i for i in range(r)],
+                          dtype=torch.int32)
+    key = keys[0]
+    rows = ab.one_step_rows(key, counts, s_len, k_bits)
+    assert rows.dtype == torch.int32 and rows.shape == (r, s_len)
+    assert bool((rows >= 0).all() and (rows < counts.unsqueeze(-1)).all())
+    muls, adds = shuffle._derive_constants(key)
+    assert torch.equal(
+        shuffle.exact_prefix_permutation_inverse_reference(
+            key, rows, counts, k_bits).to(torch.int64),
+        shuffle._unmix(rows.to(torch.int64), muls, adds, k_bits))
+    assert bool((ab.walk_steps(key, rows, counts, k_bits, "inverse")
+                 == 1).all())

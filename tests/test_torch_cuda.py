@@ -889,6 +889,31 @@ def _shuffle_keys(r, dev, seed=0):
     return prng.split(prng.key(seed), r).to(dev)
 
 
+def _prp_forms(keys, counts, s_len, k_bits):
+    """S1's argument forms at one shape besides prp_splits' (which
+    ``ab_shuffle_kernels.prp_forms`` makes): one row of int64 slots for
+    every key, then a row each; int32 rows under a shared key with an int
+    count; a ragged S (not a multiple of 4) and a sliced input that is not
+    contiguous (rows off 16-byte alignment, a row stride past S)."""
+    r = keys.shape[0]
+    slots = torch.arange(s_len, device=keys.device)
+    rows = torch.stack([slots.roll(7 * i) for i in range(r)])
+    wide = torch.cat([rows, rows[:, :9]], dim=1).to(torch.int32)
+    return {
+        "shared-row": (keys, slots, counts),
+        "row-each": (keys, rows, counts),
+        "int32-shared-key-int-count": (keys[0], rows.to(torch.int32),
+                                       int(counts[0])),
+        "ragged": (keys, rows[:, :s_len - 3], counts),
+        "sliced": (keys, wide[:, 1:s_len - 4], counts.to(torch.int64)),
+    }
+
+
+PRP_NAMES = {"capped": "epoch_permutation",
+             "exact": "exact_prefix_permutation",
+             "inverse": "exact_prefix_permutation_inverse"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["capped", "exact", "inverse"])
 @pytest.mark.parametrize("shape", list(SHUFFLE_SHAPES))
@@ -899,18 +924,72 @@ def test_prp_kernel_matches_plain_version(shape, mode):
     r, s_len, count, k_bits = SHUFFLE_SHAPES[shape]
     keys = _shuffle_keys(r, dev)
     counts = torch.tensor([count - 17 * i for i in range(r)], device=dev)
-    slots = torch.arange(s_len, device=dev)
-    name = {"capped": "epoch_permutation",
-            "exact": "exact_prefix_permutation",
-            "inverse": "exact_prefix_permutation_inverse"}[mode]
-    # one row of slots for every key, then a row of its own per key
-    rows = torch.stack([slots.roll(7 * i) for i in range(r)])
-    for s in (slots, rows):
+    name = PRP_NAMES[mode]
+    for form, args in _prp_forms(keys, counts, s_len, k_bits).items():
         before = SH.PRP_LAUNCHES
-        got = getattr(SH, name)(keys, s, counts, k_bits)
+        got = getattr(SH, name)(*args, k_bits)
         assert SH.PRP_LAUNCHES == before + 1
-        want = getattr(SH, name + "_reference")(keys, s, counts, k_bits)
-        assert got.dtype == torch.int32 and torch.equal(got, want)
+        want = getattr(SH, name + "_reference")(*args, k_bits)
+        assert got.dtype == torch.int32 and torch.equal(got, want), form
+
+
+# prp_splits' two calls (ab_shuffle_kernels.prp_forms) at the canonical
+# run's shape and the bench sweep chunk's (120 runs of 131,072 slots).
+SPLIT_SHAPES = {"canonical": (4, 131_072, 100_000, 17),
+                "sweep": (120, 131_072, 100_000, 17)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["split inverse", "split exact"])
+@pytest.mark.parametrize("shape", list(SPLIT_SHAPES))
+def test_prp_kernel_at_the_samplers_forms(shape, form):
+    from mfcd_tpu_torch.ops import shuffle as SH
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as AB
+
+    dev = _card()
+    r, s_len, count, k_bits = SPLIT_SHAPES[shape]
+    keys = _shuffle_keys(r, dev, 3)
+    counts = torch.full((r,), count, dtype=torch.int32, device=dev)
+    mode, *args = AB.prp_forms(keys, counts, s_len, k_bits)[form]
+    name = AB.PRP_FNS[mode]
+    before = SH.PRP_LAUNCHES
+    got = getattr(SH, name)(*args)
+    assert SH.PRP_LAUNCHES == before + 1
+    want = getattr(SH, name + "_reference")(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def baseline_build():
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as AB
+
+    _card()
+    return AB.Baseline()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["capped", "exact", "inverse"])
+def test_prp_kernel_matches_the_earlier_build(mode, baseline_build):
+    # S1 against the one-slot-a-thread build at the canonical shape, every
+    # form of both tests above.
+    from mfcd_tpu_torch.ops import shuffle as SH
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as AB
+
+    dev = _card()
+    r, s_len, count, k_bits = SHUFFLE_SHAPES["canonical"]
+    keys = _shuffle_keys(r, dev)
+    counts = torch.tensor([count - 17 * i for i in range(r)],
+                          dtype=torch.int32, device=dev)
+    m = {"capped": SH._CAPPED, "exact": SH._EXACT,
+         "inverse": SH._INVERSE}[mode]
+    forms = [(m, *args, k_bits) for args in _prp_forms(
+        keys, counts, s_len, k_bits).values()]
+    forms += [f for f in AB.prp_forms(keys, counts, s_len, k_bits).values()
+              if f[0] == m]
+    for form in forms:
+        old = baseline_build.prp(*form[1:], form[0])
+        got = getattr(SH, PRP_NAMES[mode])(*form[1:])
+        assert torch.equal(got, old)
 
 
 @pytest.mark.cuda

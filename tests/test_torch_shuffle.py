@@ -241,33 +241,85 @@ class _FakeLaunch:
         monkeypatch.setattr(T._build, "stream_ptr", lambda dev: 0)
 
     def mfcd_prp(self, *args):
+        assert len(args) == len(T._S1_ARGS)   # the entry's C signature
         self.calls.append(("prp",) + args)
         return 0
 
     def mfcd_mix_stream(self, *args):
+        assert len(args) == len(T._S2_ARGS)
         self.calls.append(("mix",) + args)
         return 0
 
 
-@pytest.mark.parametrize("case", ["one-key", "shared-slots", "row-slots"])
+def _split_calls():
+    """S1's two calls in ``prp_splits`` as the sampler makes them at R = 4
+    (``sampling/prp.py:303-306``): the split key ``[2]`` shared by every
+    run over int32 slot rows, with the runs' int32 budget broadcast from
+    one value (``data/btl.py``'s ``runs``); then each run's sample key, a
+    column of the runs' key tree, over the inverse walk's int32 output with
+    the domain size as an int (k = 30)."""
+    y = torch.arange(4 * 64, dtype=torch.int32).reshape(4, 64) % 50
+    count = torch.as_tensor(50, dtype=torch.int32).expand(4)
+    sample_keys = prng.split_reference(prng.key(3), 4 * 9).reshape(4, 9, 2)
+    return ((TKEY, y, count), (sample_keys[:, 2], y, 999_000_000))
+
+
+# (keys, slots, count) -> (rows, n, key row, slot row, slot bytes, count row,
+# count bytes, count value, out shape) handed to S1.
+PRP_FORMS = {
+    "one-key": lambda: ((TKEY, torch.arange(40), 30),
+                        (1, 40, 0, 0, 8, 0, 0, 30, (40,))),
+    "shared-slots": lambda: (
+        (torch.stack([TKEY, TKEY ^ 1, TKEY ^ 2]), torch.arange(40),
+         torch.tensor([30, 31, 32])), (3, 40, 2, 0, 8, 1, 8, 0, (3, 40))),
+    "row-slots": lambda: (
+        (torch.stack([TKEY, TKEY ^ 1, TKEY ^ 2]),
+         torch.arange(120).reshape(3, 40), 30),
+        (3, 40, 2, 40, 8, 0, 0, 30, (3, 40))),
+    "split-inverse": lambda: (_split_calls()[0],
+                              (4, 64, 0, 64, 4, 0, 4, 0, (4, 64))),
+    "split-exact": lambda: (_split_calls()[1],
+                            (4, 64, 18, 64, 4, 0, 0, 999_000_000, (4, 64))),
+}
+
+
+@pytest.mark.parametrize("case", list(PRP_FORMS))
 def test_prp_wrapper_shapes_its_launch(case, monkeypatch):
-    # (keys, slots, count) -> (rows, n, slot row stride) handed to S1:
-    # slots that broadcast over the keys are passed once (stride 0).
+    # Slots or a key that serve every row are passed once (row stride 0),
+    # and S1 reads every argument where the caller holds it: the key words,
+    # the slots (their own type) and a count tensor by pointer, an int
+    # count by value.  The only tensor the wrapper makes is the output.
     fake = _FakeLaunch(monkeypatch)
-    keys = torch.stack([TKEY, TKEY ^ 1, TKEY ^ 2])
-    args, want = {
-        "one-key": ((TKEY, torch.arange(40), 30), (1, 40, 0, (40,))),
-        "shared-slots": ((keys, torch.arange(40), torch.tensor([30, 31, 32])),
-                         (3, 40, 0, (3, 40))),
-        "row-slots": ((keys, torch.arange(120).reshape(3, 40), 30),
-                      (3, 40, 40, (3, 40))),
-    }[case]
+    (key, slots, count), want = PRP_FORMS[case]()
     before = T.PRP_LAUNCHES
-    out = T._prp_launch("t", *args, 6, T._EXACT)
-    (_, _, _, _, slot_row, _, rows, n, mode, k_bits, _), = fake.calls
-    assert (rows, n, slot_row, tuple(out.shape)) == want
+    out = T._prp_launch("t", key, slots, count, 6, T._EXACT)
+    (_, keys, key_row, cnt, count_row, count_bytes, count_value, sl,
+     slot_row, slot_bytes, dst, rows, n, mode, k_bits, _), = fake.calls
+    assert (rows, n, key_row, slot_row, slot_bytes, count_row, count_bytes,
+            count_value, tuple(out.shape)) == want
+    assert (keys, sl, dst) == (key.data_ptr(), slots.data_ptr(),
+                               out.data_ptr())
+    assert cnt == (count.data_ptr() if count_bytes else None)
     assert (mode, k_bits, out.dtype) == (T._EXACT, 6, torch.int32)
     assert T.PRP_LAUNCHES == before + 1
+
+
+def test_prp_wrapper_rejects_what_s1_does_not_take(monkeypatch):
+    fake = _FakeLaunch(monkeypatch)
+    slots = torch.arange(40)
+    for args, match in (((TKEY[:1], slots, 30, 6), "key"),
+                        ((TKEY, slots[0], 30, 6), "slots"),
+                        ((TKEY, slots, 30, 33), "k_bits"),
+                        ((TKEY, slots.reshape(4, 10),
+                          torch.tensor([1, 2, 3]), 6), "shape"),
+                        ((TKEY.to("meta"), slots, 30, 6), "share")):
+        with pytest.raises(ValueError, match=match):
+            T._prp_launch("t", *args, T._EXACT)
+    assert fake.calls == []
+    # empty: no launch
+    assert T._prp_launch("t", TKEY, slots[:0], 30, 6,
+                         T._EXACT).shape == (0,)
+    assert fake.calls == []
 
 
 def test_mix_stream_wrapper_rejects_what_s2_does_not_take(monkeypatch):
@@ -499,3 +551,328 @@ def test_tiles_per_group_follows_the_stream():
     assert _tiles_per_group(120, 131_072, 64) == 32
     assert _tiles_per_group(4, 131_072, 0) == 1
     assert _tiles_per_group(1, 256, 8) == 16
+
+
+# S1's kernel (ops/csrc/shuffle_kernel.cu, prp_quads) modelled on the host,
+# reading the wrapper's arguments through its pointers as the kernel does:
+# rows on the grid's y (a loop past 65,535), a row's mixing words derived a
+# block (thread t < 6 hashes word t, threads 0-2 of the inverse walk invert
+# theirs by Newton), quads of 4 slots walked in step (a quad stops when its 4 have landed, the
+# capped walk after 48 steps, then its strided fallback slot by slot; the
+# exact and inverse walks, where the count is under 7/8 of 2^k, hand a
+# warp's last slots out one to a lane once at most 32 are out), the last
+# quad's slots past n walked from 0 and not stored, and 16-byte loads only
+# where n % 4 == 0 and the rows are aligned.  Every output word is written
+# once.
+M32 = 0xFFFFFFFF
+
+
+def _np_view(ptr, count, ctype):
+    import ctypes
+
+    return np.ctypeslib.as_array((ctype * max(count, 1)).from_address(ptr))
+
+
+def _mixer(keys, k_bits, inverse):
+    """Each row's (muls, adds, invs) as a block derives them: word t from
+    thread t's bits_at, each inverse from thread t's Newton steps."""
+    idx = torch.arange(6)
+    words = prng.bits_at_reference(keys[:, None, :], idx).numpy().astype(
+        np.uint64)                                             # [rows, 6]
+    muls, adds = words[:, :3] | 1, words[:, 3:]
+    invs = muls.copy()
+    if inverse:
+        for _ in range(5):
+            invs = (invs * ((2 - muls * invs) & M32)) & M32
+    return muls, adds, invs
+
+
+def _np_step(x, muls, adds, invs, k_bits, inverse):
+    mask = (1 << k_bits) - 1
+    shift = max(k_bits // 2, 1)
+    col = lambda a, r: a[:, r].reshape((-1,) + (1,) * (x.ndim - 1))
+    if not inverse:
+        for r in range(3):
+            x = (x * col(muls, r)) & mask
+            x = x ^ (x >> shift)
+            x = (x + col(adds, r)) & mask
+        return x
+    passes = -(-k_bits // shift) - 1
+    assert passes <= 2      # the kernel's unrolled loop
+    for r in range(2, -1, -1):
+        y = (x - col(adds, r)) & mask
+        z = y
+        for it in range(2):
+            if it < passes:
+                z = y ^ (z >> shift)
+        x = (z * col(invs, r)) & mask
+    return x
+
+
+def _popc(a):
+    """Set bits of each word of ``a`` (uint64, below 2^32)."""
+    a = a.astype(np.uint64)
+    a = a - ((a >> np.uint64(1)) & np.uint64(0x5555555555555555))
+    a = ((a & np.uint64(0x3333333333333333))
+         + ((a >> np.uint64(2)) & np.uint64(0x3333333333333333)))
+    a = (a + (a >> np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    return (a * np.uint64(0x0101010101010101)) >> np.uint64(56)
+
+
+def _nth_set(v, j):
+    """The kernel's nth_set: the position of the j-th set bit of v."""
+    pos = np.zeros_like(v)
+    for w in (16, 8, 4, 2, 1):
+        w = np.uint64(w)
+        low = _popc(v & ((np.uint64(1) << w) - np.uint64(1)))
+        go = j >= low
+        j = np.where(go, j - low, j)
+        v = np.where(go, v >> w, v)
+        pos = np.where(go, pos + w, pos)
+    return pos
+
+
+def _walk_quads(v, c, mixer, k_bits, mode):
+    """The kernel's walk4 over quads ``v [rows, Q, 4]`` (uint64 words),
+    counts ``c [rows]``: a warp's 32 lanes walk quads together; an
+    uncapped walk in a row whose count is under 7/8 of 2^k hands the
+    warp's last slots out (at most 32) one to a lane, by the places the
+    ballots give them.  Returns (the walked words, the warps that handed
+    slots out)."""
+    inverse = mode == T._INVERSE
+    step = lambda x: _np_step(x, *mixer, k_bits, inverse)
+    rows, quads = v.shape[:2]
+    c = c.reshape(-1, 1, 1)
+    c1 = np.maximum(c, 1)
+    if mode == T._CAPPED:
+        x = step(v)
+        live = (x >= c).any(-1)
+        for _ in range(48):
+            if not live.any():
+                break
+            y = step(x)
+            x = np.where(live[..., None] & (x >= c), y, x)
+            live = (x >= c).any(-1)
+        fallback = ((v * mixer[0][:, None, None, 0]) & M32) % c1
+        return np.where(x >= c, fallback, x), 0
+    # a warp's lanes; where a row has few quads, as many as can receive a
+    # slot (4 a quad), to keep the model small
+    width = min(32, 4 * quads)
+    warps = -(-quads // width)
+    has = np.arange(width * warps).reshape(warps, width) < quads
+    pad = np.zeros((rows, width * warps, 4), np.uint64)
+    pad[:, :quads] = v
+    x = step(np.where(pad < c1, pad, 0)).reshape(rows, warps, width, 4)
+    c1 = c1.reshape(-1, 1, 1, 1)
+    has = np.broadcast_to(has[None, :, :, None], x.shape)
+    comp = 8 * c1[:, :, 0, 0] < 7 * (1 << k_bits)   # [rows, 1]
+    handed = 0
+    while True:
+        out = has & (x >= c1)
+        total = out.sum((2, 3))
+        if not total.any():
+            break
+        more = np.where(comp, total > 32, total > 0)
+        if more.any():
+            y = step(x)
+            x = np.where(more[..., None, None] & (x >= c1), y, x)
+        hand = comp & (total > 0) & ~more   # these warps hand slots out
+        if hand.any():
+            handed += int(hand.sum())
+            lanes = np.arange(width, dtype=np.uint64)
+            ballot = (out.astype(np.uint64) << lanes[:, None]).sum(2)
+            count = out.sum(2)            # [rows, warps, 4]
+            base = np.cumsum(count, -1) - count
+            p = np.arange(width)[None, None, :, None]
+            ends = (base + count)[:, :, None, :]
+            kind = (p >= ends).sum(-1)          # [rows, warps, 32]
+            got = p[..., 0] < total[..., None]
+            kk = np.minimum(kind, 3)
+            j = (p[..., 0] - np.take_along_axis(base, kk, -1))
+            src = np.where(got, _nth_set(np.take_along_axis(ballot, kk, -1),
+                                         np.where(got, j, 0).astype(
+                                             np.uint64)), p[..., 0])
+            y = x[np.arange(rows)[:, None, None], np.arange(warps)[
+                None, :, None], src.astype(np.int64), kk]
+            y = np.where(got, y, 0)
+            cw = c1[..., 0]
+            while (got & (y >= cw)).any():
+                y = np.where(got & (y >= cw),
+                             _np_step(y, *mixer, k_bits, inverse), y)
+            # back: lane l's slot k from the lane at its place
+            below = (np.uint64(1) << lanes) - np.uint64(1)
+            place = base[:, :, None, :] + _popc(
+                ballot[:, :, None, :] & below[:, None]).astype(np.int64)
+            back = np.take_along_axis(
+                y[..., None].repeat(4, -1), np.minimum(place, width - 1), 2)
+            x = np.where(hand[..., None, None] & out, back, x)
+            has = has & ~hand[..., None, None]
+    return x.reshape(rows, width * warps, 4)[:, :quads], handed
+
+
+class _FakeS1:
+    """The S1 entry on CPU tensors: reads the wrapper's arguments through
+    the pointers and writes the model's words to the output."""
+
+    def __init__(self, monkeypatch):
+        self.vec, self.handed = [], 0
+        monkeypatch.setattr(prng, "_on", lambda who, dev: True)
+        monkeypatch.setattr(T, "_library", lambda: self)
+        monkeypatch.setattr(T._build, "stream_ptr", lambda dev: 0)
+
+    def mfcd_prp(self, keys, key_row, count, count_row, count_bytes,
+                 count_value, slots, slot_row, slot_bytes, out, rows, n,
+                 mode, k_bits, stream):
+        import ctypes
+
+        assert len(T._S1_ARGS) == 15   # the parameters above
+        r = np.arange(rows)
+        kv = _np_view(keys, (rows - 1) * key_row + 2, ctypes.c_int64)
+        key = torch.from_numpy(np.stack([kv[r * key_row],
+                                         kv[r * key_row + 1]], -1))
+        if count_bytes:
+            cv = _np_view(count, (rows - 1) * count_row + 1,
+                          {4: ctypes.c_int32, 8: ctypes.c_int64}[
+                              count_bytes])
+            c = cv[r * count_row].astype(np.int64) & M32
+        else:
+            c = np.full(rows, count_value & M32, np.int64)
+        sv = _np_view(slots, (rows - 1) * slot_row + n,
+                      {4: ctypes.c_int32, 8: ctypes.c_int64}[slot_bytes])
+        vals = (sv[r[:, None] * slot_row + np.arange(n)].astype(np.int64)
+                & M32).astype(np.uint64)
+        c = c.astype(np.uint64)
+        self.vec.append(n % 4 == 0 and (slots | out) % 16 == 0
+                        and slot_row * slot_bytes % 16 == 0)
+        quads = -(-n // 4)
+        dst = _np_view(out, rows * n, ctypes.c_int32).reshape(rows, n)
+        written = np.zeros((rows, n), np.int64)
+        gy = min(rows, 65535)           # the grid's rows
+        for y0 in range(0, rows, gy):   # blockIdx.y's row loop
+            rs = np.arange(y0, min(y0 + gy, rows))
+            mixer = _mixer(key[rs], k_bits, mode == T._INVERSE)
+            pad = np.zeros((len(rs), 4 * quads), np.uint64)
+            pad[:, :n] = vals[rs]   # vec or slot by slot: the same words
+            got, handed = _walk_quads(pad.reshape(len(rs), quads, 4),
+                                      c[rs], mixer, k_bits, mode)
+            self.handed += handed
+            got = got.reshape(len(rs), -1)[:, :n]
+            dst[rs] = (got & M32).astype(np.uint32).view(np.int32)
+            written[rs] += 1
+        assert (written == 1).all()
+        return 0
+
+
+def _jax_prp(mode, keys, slots, counts, k_bits):
+    """JAX's function of ``mode`` over rows: one key [2] for all (counts
+    broadcast per row) or a key a row (vmapped)."""
+    fn = {T._CAPPED: J.epoch_permutation, T._EXACT: J.exact_prefix_permutation,
+          T._INVERSE: J.exact_prefix_permutation_inverse}[mode]
+    kd = jax.random.wrap_key_data(jnp.asarray(
+        keys.numpy().astype(np.uint32)))
+    s = jnp.asarray(slots.numpy().astype(np.int64).astype(np.uint32))
+    c = jnp.asarray((np.asarray(counts, np.int64) & M32).astype(np.uint32))
+    if keys.dim() == 1:
+        return np.asarray(fn(kd, s, c.reshape(c.shape + (1,) * (
+            s.ndim - c.ndim)), k_bits))
+    return np.asarray(jax.vmap(lambda k, sl, cc: fn(k, sl, cc, k_bits))(
+        kd, s, jnp.broadcast_to(c, s.shape[:1])))
+
+
+def _s1_case(name):
+    """(keys, slots, count as passed, counts per row, k_bits) of an edge
+    case; slots at or above the count and negative ones included."""
+    keys = lambda r, seed=0: prng.split_reference(prng.key(seed), r)
+    if name == "k-bits-1":        # counts 0, 1, 2^k; S % 4 = 2
+        slots = torch.tensor([[0, 1], [1, 0], [0, -1]], dtype=torch.int32)
+        counts = torch.tensor([0, 1, 2], dtype=torch.int32)
+        return keys(3), slots, counts, counts, 1
+    if name == "k-bits-32":       # S % 4 = 3, counts near 2^32 (int64)
+        g = np.random.default_rng(32)
+        slots = torch.from_numpy(g.integers(-2**31, 2**31, (2, 39)))
+        counts = torch.tensor([2**32 - 1, 3_000_000_000])
+        return keys(2, 1), slots, counts, counts, 32
+    if name == "ragged":          # counts 0, 1, 3, 2^k; S % 4 = 1
+        slots = (torch.arange(4 * 37, dtype=torch.int32).reshape(4, 37)
+                 - 5) * 3
+        counts = torch.tensor([0, 1, 3, 128], dtype=torch.int32)
+        return keys(4, 2), slots, counts, counts, 7
+    if name == "shared-key-int32-rows":   # prp_splits' inverse call
+        slots = torch.arange(4 * 64, dtype=torch.int32).reshape(4, 64) % 61
+        count = torch.as_tensor(50, dtype=torch.int32).expand(4)
+        return TKEY, slots, count, count, 6
+    if name == "int-count-k30":   # prp_splits' exact call (prp_indices)
+        slots = torch.arange(4 * 64, dtype=torch.int32).reshape(4, 64) * 7
+        return keys(4, 3), slots, 999_000_000, [999_000_000] * 4, 30
+    if name == "unaligned-int64":  # off 16-byte alignment, strided rows
+        buf = torch.arange(3 * 70 + 1, dtype=torch.int64) - 9
+        slots = buf[1:].reshape(3, 70)[:, :64]
+        counts = torch.tensor([40, 64, 33])
+        return keys(3, 4), slots, counts, counts, 6
+    # rows past one grid row (65,535): a key and a count a row
+    r = 65_540
+    slots = torch.arange(r * 3, dtype=torch.int32).reshape(r, 3) % 17
+    counts = (torch.arange(r, dtype=torch.int32) % 16) + 1
+    return keys(r, 5), slots, counts, counts, 4
+
+
+S1_CASES = ["k-bits-1", "k-bits-32", "ragged", "shared-key-int32-rows",
+            "int-count-k30", "unaligned-int64", "rows-past-the-grid"]
+S1_MODES = {"capped": T._CAPPED, "exact": T._EXACT, "inverse": T._INVERSE}
+
+
+@pytest.mark.parametrize("mode", list(S1_MODES))
+@pytest.mark.parametrize("case", S1_CASES)
+def test_s1_decomposition_bit_equal(case, mode, monkeypatch):
+    """The wrapper's S1 launch through the kernel's model against the
+    plain version and JAX's function."""
+    mode = S1_MODES[mode]
+    keys, slots, count, counts, k_bits = _s1_case(case)
+    fn = {T._CAPPED: "epoch_permutation", T._EXACT: "exact_prefix_permutation",
+          T._INVERSE: "exact_prefix_permutation_inverse"}[mode]
+    want = _jax_prp(mode, keys, slots, counts, k_bits)
+    plain = getattr(T, fn + "_reference")(keys, slots, count, k_bits)
+    assert (plain.numpy() == want).all()
+    fake = _FakeS1(monkeypatch)
+    got = T._prp_launch("t", keys, slots, count, k_bits, mode)
+    assert got.dtype == torch.int32 and (got.numpy() == want).all()
+    # the exact and inverse walks hand a warp's last slots out (not in
+    # "ragged", whose rows start almost every slot from 0 and land together,
+    # nor at a count above 7/8 of 2^k)
+    if case not in ("ragged", "int-count-k30"):
+        assert (fake.handed > 0) == (mode != T._CAPPED)
+    # 16-byte loads where n % 4 == 0 and the rows are aligned
+    vec = {"shared-key-int32-rows": True, "int-count-k30": True}
+    assert fake.vec == [vec.get(case, False)]
+
+
+def test_prp_splits_reaches_s1_with_its_arguments_as_held(monkeypatch):
+    """``prp_splits``' two S1 calls, recorded as chip_smoke [14c] records
+    them: the split key [2] shared by the runs over int32 rows with the
+    budget broadcast from one int32 (row stride 0), then the runs' sample
+    keys over the inverse walk's int32 output with the domain size as an
+    int; through the kernels' model, the splits equal the plain run's."""
+    from mfcd_tpu_torch.sampling import prp as P
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as AB
+
+    n, m, r, t_cap = 20, 25, 4, 256
+    dom = P.prp_domain_size(n, m)
+    train_cap, val_cap = int(0.8 * t_cap), int(0.1 * t_cap)
+    args = (prng.split_reference(prng.key(9), r), prng.key(4), dom,
+            lambda idx: P.decode_random(idx, n, m), t_cap, train_cap,
+            val_cap, t_cap - train_cap - val_cap,
+            torch.as_tensor(200, dtype=torch.int32).expand(r))
+    want = P.prp_splits(*args)
+    _FakeS1(monkeypatch)
+    got = []
+    calls = AB.record_prp_calls("cpu", {
+        "splits": lambda: got.append(P.prp_splits(*args))})["splits"]
+    forms = [AB.describe(*c) for c in calls]
+    assert [(f["fn"], f["key"], f["slots"], f["slots_dtype"], f["count"],
+             f["k_bits"]) for f in forms] == [
+        ("exact_prefix_permutation_inverse", [2], [r, t_cap], "int32",
+         "int32 [4] stride [0]", 8),
+        ("exact_prefix_permutation", [r, 2], [r, t_cap], "int32",
+         f"int {dom}", (dom - 1).bit_length())]
+    for a, b in zip(want, got[0]):
+        assert torch.equal(a, b)
