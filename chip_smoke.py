@@ -125,8 +125,8 @@ Phases, each of which raises on failure (nothing is caught and continued):
    30 epochs (two ``run_config`` calls): K1 the trainer, 30 launches a
    call at the chosen C, every key finite, accuracy above 0.6 and within
    0.2 of the ground truth's; the first and the steady wall, peak memory
-   and, in a third call, the stage spans with the card synchronised at
-   their edges; then at
+   and, in a third call, the stage spans on the card's clock (the
+   recorder's events at their edges); then at
    n = m = 5,000, p = 0.02, 2 epochs, ``run_config`` with K1 against the
    autograd trainer on the card, within [5]'s bound; (c)
    ``mfcd_tpu_torch.scripts.weak_scaling``'s fixed work at 1 and 2 gloo
@@ -148,7 +148,7 @@ Phases, each of which raises on failure (nothing is caught and continued):
    autograd child: runs/hour, s/run, 30 K1 launches a call or chunk, peak
    memory per run beside ``run_bytes``, accuracy above 0.6 at the
    canonical configuration and at K = 50, and a K = 50 call with the
-   stage spans synchronised; (c) ``run_config`` at hard K = 10 (1 epoch)
+   stage spans on the card's clock; (c) ``run_config`` at hard K = 10 (1 epoch)
    with K1 against the autograd trainer on the card, within [5]'s bound,
    and the autograd ms a step; (d) ``parameter_scan_fast`` over the
    notebook's soft K axis (K = 1, 2, 4, 10, 50 at s = 5, wd = 5e-6, 30
@@ -176,7 +176,7 @@ Phases, each of which raises on failure (nothing is caught and continued):
    canonical ``run_config`` with ``train_runs_kernel`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in the
    trainer's epoch loop), 30 S2 and 30 K1 launches a call, s/run, and a
-   call with its stage spans synchronised; (c) S1 at the calls the main
+   call with its stage spans on the card's clock; (c) S1 at the calls the main
    path makes: the canonical run, the bench bucket, the bench's sweep,
    hard K = 10 and 50 and scale_demo's configuration run at one epoch
    with S1's arguments recorded (``ab_shuffle_kernels.record_prp_calls``),
@@ -2330,51 +2330,40 @@ def scale_kernel_phase(dev, smi):
     return entries, worst
 
 
-def _synced_spans(call):
-    """One ``call()`` with the port's stage spans (``mfcd.*`` in the engine
-    and the kernel trainer) timed on the host clock, the card synchronised
-    at each span's edges, so a span holds its own device work: returns
-    (the call's wall, seconds by span).  It costs a few syncs an epoch,
-    where a profiler trace of every launch of a 30-epoch run at n = m =
-    10,000 is long to read back."""
-    import contextlib
+def _card_spans(call):
+    """One ``call()`` as a call of the port's stage recorder
+    (``utils/observability``), its spans timed on the card's clock by the
+    recorder's CUDA events, with no sync: returns (the call's wall, seconds
+    by span name, each span's own card timeline and its children's)."""
+    from mfcd_tpu_torch.utils import observability
 
-    from mfcd_tpu_torch.sweep import engine
-    from mfcd_tpu_torch.train import kernel_trainer
-
-    spans = {}
-
-    @contextlib.contextmanager
-    def timed(name):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
-
-    saved = [(mod, mod.record_function) for mod in (engine, kernel_trainer)]
-    for mod, _ in saved:
-        mod.record_function = timed
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with observability.call("chip_smoke", "cuda"):
         call()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for mod, fn in saved:
-            mod.record_function = fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    raw = observability.calls()[-1]["spans"]
+    parent = {sp["id"]: sp["parent"] for sp in raw}
+    inclusive = {sp["id"]: 0 for sp in raw}
+    for sp in raw:
+        up = sp["id"]
+        while up is not None:
+            inclusive[up] += sp["card_ns"]
+            up = parent[up]
+    spans = {}
+    for sp in raw:
+        spans[sp["name"]] = spans.get(sp["name"], 0.0) + \
+            inclusive[sp["id"]] * 1e-9
     return wall, spans
 
 
 def scale_demo_phase(smi):
     """[12b] ``scale_demo`` at n = m = 10,000 (K1 the trainer, 30 launches
-    a call, every key finite, learning; its first call with synchronised
-    stage spans, so a slow first call shows where it went), a third call
-    for the span split; then K1 against the autograd trainer at n = m =
-    5,000.  Returns the demo's line."""
+    a call, every key finite, learning; its first call with its stage
+    spans on the card's clock, so a slow first call shows where it went),
+    a third call for the span split; then K1 against the autograd trainer
+    at n = m = 5,000.  Returns the demo's line."""
     from mfcd_tpu_torch.core.config import RunConfig
     from mfcd_tpu_torch.core.results import validate_schema
     from mfcd_tpu_torch.ops import kernels
@@ -2387,7 +2376,7 @@ def scale_demo_phase(smi):
     def spanned_once(*args, **kwargs):
         engine.run_config = run_config
         out = []
-        first["wall"], first["spans"] = _synced_spans(
+        first["wall"], first["spans"] = _card_spans(
             lambda: out.append(run_config(*args, **kwargs)))
         return out[0]
 
@@ -2414,15 +2403,15 @@ def scale_demo_phase(smi):
         fail(f"[12b] accuracy {acc:.4f}, ground truth {gt:.4f}")
     cfg = RunConfig(n=n, m=n, d=2, p=SCALE_DEMO["p"], s=5.0, lr=1e-3,
                     weight_decay=1e-5, num_epochs=epochs, reps=1)
-    wall, spans = _synced_spans(lambda: run_config(
+    wall, spans = _card_spans(lambda: run_config(
         cfg, seed=scale_demo.SEEDS[1], device="cuda"))
-    keep = ("mfcd.sample", "mfcd.label", "mfcd.train", "mfcd.train.mix",
-            "mfcd.train.epoch", "mfcd.train.val", "mfcd.metrics",
-            "mfcd.export")
+    keep = ("mfcd.generate", "mfcd.sample", "mfcd.label", "mfcd.train",
+            "mfcd.train.mix", "mfcd.train.epoch", "mfcd.train.val",
+            "mfcd.metrics", "mfcd.export")
     outside = first["wall"] - sum(
         first["spans"].get(k, 0.0) for k in keep if k.count(".") == 1)
     log(f"[12b] scale_demo n=m={n} p={SCALE_DEMO['p']}: first call "
-        f"{line['first_call_s']:.3f} s (spans synchronised: "
+        f"{line['first_call_s']:.3f} s (spans on the card's clock: "
         + ", ".join(f"{k} {1e3 * first['spans'].get(k, 0.0):.1f}"
                     for k in keep)
         + f", outside them {1e3 * outside:.1f} ms), steady "
@@ -2430,7 +2419,7 @@ def scale_demo_phase(smi):
         f"C={line['cluster']} (smallest {line['smallest_cluster']}), "
         f"launches {line['k1_launches']}; peak "
         f"{line['peak_bytes'] / 1e9:.3f} GB; accuracy {acc:.4f}, gt {gt:.4f}"
-        f"; a third call with synchronised spans {wall:.3f} s: "
+        f"; a third call, spans on the card's clock, {wall:.3f} s: "
         + ", ".join(f"{k} {1e3 * spans.get(k, 0.0):.1f}" for k in keep)
         + f" ms; {smi}")
     log("[12b] line " + json.dumps(line))
@@ -2563,8 +2552,8 @@ def bench_phase(smi):
     K = 10 kernel path), ``--sweep`` and ``--k50``, the autograd child
     skipped: 30 K1 launches a call (30 a chunk in the sweep), peak memory
     per run beside ``run_bytes``, accuracy above ACC_MIN at the canonical
-    configuration and at K = 50; then one more K = 50 call with the card
-    synchronised at the stage spans.  Returns the numbers by mode."""
+    configuration and at K = 50; then one more K = 50 call with its stage
+    spans on the card's clock.  Returns the numbers by mode."""
     import subprocess
 
     from mfcd_tpu_torch import bench
@@ -2637,14 +2626,14 @@ def bench_phase(smi):
 
     k50 = out["K=50 pallas"]
     cfg = measured[0]["cfg"]  # the K = 50 call's
-    wall, spans = _synced_spans(lambda: run_bucket(
+    wall, spans = _card_spans(lambda: run_bucket(
         cfg, [{"s": cfg.s, "lr": cfg.lr, "weight_decay": cfg.weight_decay}],
         [0], seed=bench.TIMED_SEED, device="cuda", use_kernel=True))
-    keep = ("mfcd.sample", "mfcd.label", "mfcd.train.mix",
+    keep = ("mfcd.generate", "mfcd.sample", "mfcd.label", "mfcd.train.mix",
             "mfcd.train.epoch", "mfcd.train.val", "mfcd.metrics")
     k50["spans_ms"] = {k: 1e3 * spans.get(k, 0.0) for k in keep}
-    log(f"[13b] K=50 hard, one call with synchronised spans {wall:.3f} s "
-        f"(steady unsynchronised {k50['wall']:.3f} s): "
+    log(f"[13b] K=50 hard, one call, spans on the card's clock, {wall:.3f} s "
+        f"(steady {k50['wall']:.3f} s): "
         + ", ".join(f"{k} {1e3 * spans.get(k, 0.0):.1f} ms "
                     f"({spans.get(k, 0.0) / wall:.1%})" for k in keep)
         + f"; {smi}")
@@ -2945,7 +2934,8 @@ def strict_loop_phase(smi):
     ``train_runs_kernel`` under ``torch.cuda.set_sync_debug_mode("error")``:
     a host sync anywhere in the trainer (the epoch loop included) raises.
     Two calls, the second timed (s/run); 30 S2 and 30 K1 launches a call.
-    Then one call with the stage spans synchronised (``_synced_spans``).
+    Then one call with the stage spans on the card's clock
+    (``_card_spans``).
     Returns the numbers."""
     from mfcd_tpu_torch.core.config import RunConfig
     from mfcd_tpu_torch.ops import kernels, shuffle
@@ -2984,13 +2974,13 @@ def strict_loop_phase(smi):
         engine.train_runs_kernel = inner
     if not all_finite(res) or not float(np.mean(res["accuracy"])) > ACC_MIN:
         fail(f"[14b] accuracy {res['accuracy']}")
-    wall, spans = _synced_spans(lambda: engine.run_config(
+    wall, spans = _card_spans(lambda: engine.run_config(
         cfg, seed=0, device="cuda"))
-    keep = ("mfcd.sample", "mfcd.label", "mfcd.train", "mfcd.train.mix",
-            "mfcd.train.epoch", "mfcd.train.val", "mfcd.metrics",
-            "mfcd.export")
+    keep = ("mfcd.generate", "mfcd.sample", "mfcd.label", "mfcd.train",
+            "mfcd.train.mix", "mfcd.train.epoch", "mfcd.train.val",
+            "mfcd.metrics", "mfcd.export")
     out = dict(s_per_run=walls[1] / cfg.reps, walls=walls,
-               synced_wall=wall,
+               spans_wall=wall,
                spans_ms={k: 1e3 * spans.get(k, 0.0) for k in keep})
     log(f"[14b] canonical run_config, train_runs_kernel under sync debug "
         f"mode 'error': no host sync; {cfg.num_epochs} S2 and "
@@ -2998,7 +2988,7 @@ def strict_loop_phase(smi):
         f"{', '.join(f'{w:.4f}' for w in walls)} s, "
         f"{out['s_per_run']:.4f} s/run; accuracy "
         f"{[round(float(a), 4) for a in res['accuracy']]}; a call with "
-        f"synchronised spans {wall:.4f} s: "
+        f"spans on the card's clock {wall:.4f} s: "
         + ", ".join(f"{k} {v:.1f} ms ({v / 1e3 / wall:.1%})"
                     for k, v in out["spans_ms"].items()) + f"; {smi}")
     return out

@@ -29,7 +29,7 @@ ranks agree on a chunk's failure before any of them bisects it.  Every
 collective runs on the caller's thread, in chunk order.
 
 Not ported: the TPU-transport retries and compile-cache purge
-(``ROADMAP.md``).  The phases are ``torch.profiler`` spans:
+(``ROADMAP.md``).  The phases are stage spans (``utils/observability``):
 ``mfcd.sweep.dispatch`` and ``mfcd.sweep.collect`` (the copy to the host;
 both on the worker when pipelined), ``mfcd.sweep.wait`` (the caller
 waiting for a chunk), ``mfcd.sweep.gather`` (the ranks' results, under a
@@ -46,7 +46,6 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from mfcd_tpu_torch.backend import resolve_device
 from mfcd_tpu_torch.core import decisions, prng, rng
@@ -57,6 +56,7 @@ from mfcd_tpu_torch.parallel.mesh import Mesh
 from mfcd_tpu_torch.sampling import dedup, prp, strategies
 from mfcd_tpu_torch.sweep.engine import (DEFAULT_SEED, _run_bucket_device,
                                          compile_caps, resolve_use_kernel)
+from mfcd_tpu_torch.utils import observability as obs
 from mfcd_tpu_torch.utils.io import (append_results, completed_param_sets,
                                      reset_save_path)
 
@@ -138,7 +138,7 @@ def _gather(mesh: Mesh, host: Optional[Dict[str, torch.Tensor]],
         if worst == _OOM:
             raise RuntimeError("out of memory on another rank of the mesh")
         raise RuntimeError("the chunk failed on a rank of the mesh") from err
-    with record_function("mfcd.sweep.gather"):
+    with obs.span("mfcd.sweep.gather"):
         blocks = [None] * mesh.size
         dist.all_gather_object(blocks, host)
         return {k: torch.cat([blk[k] for blk in blocks]) for k in blocks[0]}
@@ -162,7 +162,7 @@ class BucketFuture:
         self._post = postprocess
         self._mesh = mesh
         if executor is not None:
-            self._job = executor.submit(dispatch)
+            self._job = executor.submit(obs.carry(dispatch))
             return
         self._job = concurrent.futures.Future()
         try:
@@ -175,7 +175,7 @@ class BucketFuture:
         concurrent.futures.wait([self._job])
 
     def collect(self) -> List[Dict[str, Any]]:
-        with record_function("mfcd.sweep.wait"):
+        with obs.span("mfcd.sweep.wait"):
             try:
                 host, err = self._job.result(), None
             except Exception as e:  # noqa: BLE001 - raised here or by _gather
@@ -184,7 +184,7 @@ class BucketFuture:
                 host, err = None, e
         if self._mesh is not None:
             host = _gather(self._mesh, host, err)
-        with record_function("mfcd.sweep.export"):
+        with obs.span("mfcd.sweep.export"):
             return self._post(host)
 
 
@@ -246,7 +246,7 @@ def run_bucket_async(
     def dispatch():
         if card is not None:
             torch.cuda.set_device(card)
-        with record_function("mfcd.sweep.dispatch"):
+        with obs.span("mfcd.sweep.dispatch"):
             out = _run_bucket_device(
                 dataclasses.replace(cfg, s=0.0, lr=0.0, weight_decay=0.0),
                 cfg_keys, column("s"), column("lr"), column("weight_decay"),
@@ -254,7 +254,7 @@ def run_bucket_async(
                 budgets=np.asarray([sh.num_triplets for sh in shs], np.int32),
                 extra_budgets=np.asarray(
                     [sh.extra_test_triplets for sh in shs], np.int32))
-        with record_function("mfcd.sweep.collect"):
+        with obs.span("mfcd.sweep.collect"):
             return {k: v.cpu() for k, v in out.items()}
 
     def postprocess(host):
@@ -448,114 +448,115 @@ def parameter_scan_fast(
     to it.  ``device`` defaults to the mesh's."""
     device = (resolve_device(device) if mesh is None
               else _mesh_device(mesh, device))
-    writer = mesh is None or mesh.rank == 0
-    spec = SweepSpec(params=params, linear=linear, batch_size=batch_size)
-    param_sets = spec.expand()
-    configs = [RunConfig(batch_size=batch_size, **ps) for ps in param_sets]
-    buckets = bucket_by_shape(configs, capped=pad_compiles)
+    with obs.call("parameter_scan_fast", device):
+        writer = mesh is None or mesh.rank == 0
+        spec = SweepSpec(params=params, linear=linear, batch_size=batch_size)
+        param_sets = spec.expand()
+        configs = [RunConfig(batch_size=batch_size, **ps) for ps in param_sets]
+        buckets = bucket_by_shape(configs, capped=pad_compiles)
 
-    done: List[Dict[str, Any]] = []
-    if save_path:
-        if resume:
-            done = completed_param_sets(save_path)
-            if done and writer:
-                print(f"🔁 Resuming: {len(done)} experiments already in "
-                      f"{save_path}")
-            if mesh is not None:
-                dist.barrier()
-        elif writer:
-            reset_save_path(save_path)
+        done: List[Dict[str, Any]] = []
+        if save_path:
+            if resume:
+                done = completed_param_sets(save_path)
+                if done and writer:
+                    print(f"🔁 Resuming: {len(done)} experiments already in "
+                          f"{save_path}")
+                if mesh is not None:
+                    dist.barrier()
+            elif writer:
+                reset_save_path(save_path)
 
-    slot_results: List[Optional[Dict]] = [None] * len(configs)
-    # MFCD_PIPELINE: one worker thread dispatches chunk k+1 while this
-    # thread exports and persists chunk k.
-    pool = (concurrent.futures.ThreadPoolExecutor(
-        max_workers=1, thread_name_prefix="mfcd-dispatch")
-        if pipeline_enabled() else None)
-    try:
-        for indices in buckets.values():
-            indices = [i for i in indices if param_sets[i] not in done]
-            if not indices:
-                continue
-            rep_cfg = configs[indices[0]]
-            caps = compile_caps(rep_cfg) if pad_compiles else None
-            bucket_cap = (max_bucket if max_bucket is not None
-                          else default_max_bucket(
-                              rep_cfg, t_cap=caps[0] if caps else None,
-                              device=device))
+        slot_results: List[Optional[Dict]] = [None] * len(configs)
+        # MFCD_PIPELINE: one worker thread dispatches chunk k+1 while this
+        # thread exports and persists chunk k.
+        pool = (concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="mfcd-dispatch")
+            if pipeline_enabled() else None)
+        try:
+            for indices in buckets.values():
+                indices = [i for i in indices if param_sets[i] not in done]
+                if not indices:
+                    continue
+                rep_cfg = configs[indices[0]]
+                caps = compile_caps(rep_cfg) if pad_compiles else None
+                bucket_cap = (max_bucket if max_bucket is not None
+                              else default_max_bucket(
+                                  rep_cfg, t_cap=caps[0] if caps else None,
+                                  device=device))
 
-            def dispatch_chunk(chunk) -> BucketFuture:
-                return run_bucket_async(
-                    rep_cfg,
-                    [{"s": configs[i].s, "lr": configs[i].lr,
-                      "weight_decay": configs[i].weight_decay}
-                     for i in chunk],
-                    chunk, seed=seed, caps=caps,
-                    bucket_configs=[configs[i] for i in chunk],
-                    device=device, executor=pool, mesh=mesh)
+                def dispatch_chunk(chunk) -> BucketFuture:
+                    return run_bucket_async(
+                        rep_cfg,
+                        [{"s": configs[i].s, "lr": configs[i].lr,
+                          "weight_decay": configs[i].weight_decay}
+                         for i in chunk],
+                        chunk, seed=seed, caps=caps,
+                        bucket_configs=[configs[i] for i in chunk],
+                        device=device, executor=pool, mesh=mesh)
 
-            def collect_or_bisect(chunk, fut, in_flight=None):
-                """Collect a chunk; on a device OOM, split it in two and
-                run the halves (the per-run estimate is a model: halving
-                converges on a chunk that fits).  A chunk ``in_flight``
-                behind it is drained first, so the halves run alone."""
-                try:
-                    return fut.collect()
-                except RuntimeError as err:
-                    if not _is_oom(err) or len(chunk) <= 1:
-                        raise
-                print(f"⚠️ device OOM on a {len(chunk)}-config chunk; "
-                      + ("draining the in-flight chunk, then "
-                         if in_flight is not None else "") + "bisecting",
-                      file=sys.stderr)
-                if in_flight is not None:
-                    in_flight.wait()
-                if device.type == "cuda":
-                    torch.cuda.empty_cache()
-                mid = len(chunk) // 2
-                return run_chunk(chunk[:mid]) + run_chunk(chunk[mid:])
+                def collect_or_bisect(chunk, fut, in_flight=None):
+                    """Collect a chunk; on a device OOM, split it in two and
+                    run the halves (the per-run estimate is a model: halving
+                    converges on a chunk that fits).  A chunk ``in_flight``
+                    behind it is drained first, so the halves run alone."""
+                    try:
+                        return fut.collect()
+                    except RuntimeError as err:
+                        if not _is_oom(err) or len(chunk) <= 1:
+                            raise
+                    print(f"⚠️ device OOM on a {len(chunk)}-config chunk; "
+                          + ("draining the in-flight chunk, then "
+                             if in_flight is not None else "") + "bisecting",
+                          file=sys.stderr)
+                    if in_flight is not None:
+                        in_flight.wait()
+                    if device.type == "cuda":
+                        torch.cuda.empty_cache()
+                    mid = len(chunk) // 2
+                    return run_chunk(chunk[:mid]) + run_chunk(chunk[mid:])
 
-            def run_chunk(chunk):
-                return collect_or_bisect(chunk, dispatch_chunk(chunk))
+                def run_chunk(chunk):
+                    return collect_or_bisect(chunk, dispatch_chunk(chunk))
 
-            def store(chunk, outs):
-                for i, res in zip(chunk, outs):
-                    slot_results[i] = res
-                if save_path and writer:
-                    with record_function("mfcd.sweep.persist"):
-                        append_results(save_path, [
-                            {"params": param_sets[i], "results": res}
-                            for i, res in zip(chunk, outs)])
+                def store(chunk, outs):
+                    for i, res in zip(chunk, outs):
+                        slot_results[i] = res
+                    if save_path and writer:
+                        with obs.span("mfcd.sweep.persist"):
+                            append_results(save_path, [
+                                {"params": param_sets[i], "results": res}
+                                for i, res in zip(chunk, outs)])
 
-            # One loop for both settings.  Pipelined, chunk k+1 is
-            # dispatched (on the worker) before chunk k is collected,
-            # exported and persisted; sequential, chunk k is done first.
-            # Chunks persist in chunk order and errors surface in chunk
-            # order.  An eager failure of chunk k+1's dispatch persists
-            # chunk k before it surfaces, as the sequential order would.
-            pending = None
-            for lo in range(0, len(indices), bucket_cap):
-                chunk = indices[lo:lo + bucket_cap]
-                if pending is not None and pool is None:
-                    store(pending[0], collect_or_bisect(*pending))
-                    pending = None
-                try:
-                    fut = dispatch_chunk(chunk)
-                except Exception:
-                    if pending is not None:
+                # One loop for both settings.  Pipelined, chunk k+1 is
+                # dispatched (on the worker) before chunk k is collected,
+                # exported and persisted; sequential, chunk k is done first.
+                # Chunks persist in chunk order and errors surface in chunk
+                # order.  An eager failure of chunk k+1's dispatch persists
+                # chunk k before it surfaces, as the sequential order would.
+                pending = None
+                for lo in range(0, len(indices), bucket_cap):
+                    chunk = indices[lo:lo + bucket_cap]
+                    if pending is not None and pool is None:
                         store(pending[0], collect_or_bisect(*pending))
-                    raise
+                        pending = None
+                    try:
+                        fut = dispatch_chunk(chunk)
+                    except Exception:
+                        if pending is not None:
+                            store(pending[0], collect_or_bisect(*pending))
+                        raise
+                    if pending is not None:
+                        store(pending[0], collect_or_bisect(*pending,
+                                                            in_flight=fut))
+                    pending = (chunk, fut)
                 if pending is not None:
-                    store(pending[0], collect_or_bisect(*pending,
-                                                        in_flight=fut))
-                pending = (chunk, fut)
-            if pending is not None:
-                store(pending[0], collect_or_bisect(*pending))
-    finally:
-        if pool is not None:
-            pool.shutdown(wait=True)
+                    store(pending[0], collect_or_bisect(*pending))
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
 
-    if save_path:
-        return []
-    return [{"params": ps, "results": res}
-            for ps, res in zip(param_sets, slot_results)]
+        if save_path:
+            return []
+        return [{"params": ps, "results": res}
+                for ps, res in zip(param_sets, slot_results)]

@@ -20,7 +20,6 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mfcd_tpu_torch.backend import resolve_device
 from mfcd_tpu_torch.core import prng, rng
@@ -35,6 +34,7 @@ from mfcd_tpu_torch.ops.kernels import epoch_kernel_supported, min_cluster
 from mfcd_tpu_torch.ops.shuffle import default_reshuffle_period
 from mfcd_tpu_torch.train.kernel_trainer import train_runs_kernel
 from mfcd_tpu_torch.train.trainer import _pad_last, train_model
+from mfcd_tpu_torch.utils import observability as obs
 from mfcd_tpu_torch.utils.io import (append_results, completed_param_sets,
                                      reset_save_path)
 
@@ -119,7 +119,6 @@ def _run_bucket_device(cfg: RunConfig, cfg_keys: torch.Tensor, s, lr,
     b, r = cfg_keys.shape[0], cfg.reps
     runs = lambda v, dt: torch.as_tensor(
         np.asarray(v), dtype=dt, device=dev).repeat_interleave(r)
-    rep_keys = rng.rep_keys(cfg_keys, r).reshape(b * r, 2)
 
     sh = cfg.shapes()
     if caps is None:
@@ -136,28 +135,32 @@ def _run_bucket_device(cfg: RunConfig, cfg_keys: torch.Tensor, s, lr,
         budget = runs(budgets, torch.int32)
         extra_budget = runs(extra_budgets, torch.int32)
 
-    # Stage spans (``mfcd.*``) name the layers in a torch.profiler trace.
-    with record_function("mfcd.sample"):
+    obs.count_runs(b * r)
+    with obs.stages() as stage:
+        stage("mfcd.generate")
+        rep_keys = rng.rep_keys(cfg_keys, r).reshape(b * r, 2)
         streams = rng.rep_streams(rep_keys)
         x = generate_x(streams["x_gen"], cfg.n, cfg.m, cfg.d, cfg.generation)
+
+        stage("mfcd.sample")
         splits = sample_and_split(
             streams, x, t_cap=t_cap, extra_cap=extra_cap,
             strategy=cfg.strategy, popularity_method=cfg.popularity_method,
             alpha=cfg.alpha, budget=budget, extra_budget=extra_budget)
         params = init_params(streams["init"], cfg.n, cfg.m, cfg.d)
 
-    s_runs = runs(s, torch.float32)
-    with record_function("mfcd.label"):
+        stage("mfcd.label")
+        s_runs = runs(s, torch.float32)
         train, val, test = label_splits(streams, x, splits, s_runs, cfg.K,
                                         cfg.soft_label)
         train = _pad_rows(train, _next_pow2(train.u.shape[-1]))
         val = _pad_rows(val, _next_pow2(val.u.shape[-1]))
         test = _pad_rows(test, _next_pow2(test.u.shape[-1]))
 
-    period = default_reshuffle_period()
-    lr_runs = runs(lr, torch.float32)
-    wd_runs = runs(weight_decay, torch.float32)
-    with record_function("mfcd.train"):
+        stage("mfcd.train")
+        period = default_reshuffle_period()
+        lr_runs = runs(lr, torch.float32)
+        wd_runs = runs(weight_decay, torch.float32)
         if use_kernel:
             params, tl, vl = train_runs_kernel(
                 params, train, val, streams["epochs"], lr_runs, wd_runs,
@@ -170,7 +173,7 @@ def _run_bucket_device(cfg: RunConfig, cfg_keys: torch.Tensor, s, lr,
                 batch_size=cfg.batch_size, num_epochs=cfg.num_epochs,
                 reshuffle_period=period)
 
-    with record_function("mfcd.metrics"):
+        stage("mfcd.metrics")
         metrics = compute_all_metrics(params, x, s_runs, test,
                                       streams["sample_rows"],
                                       batch_size=cfg.batch_size)
@@ -204,13 +207,13 @@ def run_config(cfg: RunConfig, seed: int = DEFAULT_SEED,
         extra_budgets=np.asarray([sh.extra_test_triplets], np.int32),
     )
     out = {k: v[0] for k, v in out.items()}
-    counts = out.pop("sample_count").cpu().numpy()
-    target = cfg.num_triplets
-    for c in counts:
-        if int(c) < target:
-            print(f"⚠️ Only {int(c)} triplets generated for strategy: "
-                  f"{cfg.strategy} (target={target})")
-    with record_function("mfcd.export"):
+    with obs.span("mfcd.export"):
+        counts = out.pop("sample_count").cpu().numpy()
+        target = cfg.num_triplets
+        for c in counts:
+            if int(c) < target:
+                print(f"⚠️ Only {int(c)} triplets generated for strategy: "
+                      f"{cfg.strategy} (target={target})")
         return export_results(out)
 
 
@@ -224,6 +227,7 @@ def run_experiment(
 
     ``device`` places the run (``None``: the card; ``"cpu"`` on request);
     ``open_browser`` is accepted and ignored."""
+    device = resolve_device(device)
     cfg = RunConfig(
         n=int(n), m=int(m), d=int(d), p=float(p), s=float(s), lr=float(lr),
         weight_decay=float(weight_decay), num_epochs=int(num_epochs),
@@ -232,8 +236,9 @@ def run_experiment(
         soft_label=bool(soft_label), generation=generation,
         batch_size=int(batch_size),
     )
-    return run_config(cfg, seed=seed, config_index=config_index,
-                      device=device)
+    with obs.call("run_experiment", device):
+        return run_config(cfg, seed=seed, config_index=config_index,
+                          device=device)
 
 
 def parameter_scan(
@@ -272,32 +277,33 @@ def parameter_scan(
             "not synchronized."
         )
 
-    done: List[Dict[str, Any]] = []
-    if save_path:
-        if resume:
-            done = completed_param_sets(save_path)
-            if done:
-                print(f"🔁 Resuming: {len(done)} experiments already in "
-                      f"{save_path}")
-        else:
-            reset_save_path(save_path)
+    with obs.call("parameter_scan", device):
+        done: List[Dict[str, Any]] = []
+        if save_path:
+            if resume:
+                done = completed_param_sets(save_path)
+                if done:
+                    print(f"🔁 Resuming: {len(done)} experiments already in "
+                          f"{save_path}")
+            else:
+                reset_save_path(save_path)
 
-    all_results: List[Dict[str, Any]] = []
-    for experiment_index, param_set in enumerate(spec.expand()):
-        if param_set in done:
-            continue
-        print(f"\nRunning experiment with parameters: {param_set}")
-        cfg = RunConfig(batch_size=batch_size, **param_set)
-        results = run_config(cfg, seed=seed, config_index=experiment_index,
-                             pad_compiles=pad_compiles, device=device)
-        all_results.append({"params": param_set, "results": results})
+        all_results: List[Dict[str, Any]] = []
+        for experiment_index, param_set in enumerate(spec.expand()):
+            if param_set in done:
+                continue
+            print(f"\nRunning experiment with parameters: {param_set}")
+            cfg = RunConfig(batch_size=batch_size, **param_set)
+            results = run_config(cfg, seed=seed, config_index=experiment_index,
+                                 pad_compiles=pad_compiles, device=device)
+            all_results.append({"params": param_set, "results": results})
 
-        if save_path and save_every and len(all_results) >= save_every:
+            if save_path and save_every and len(all_results) >= save_every:
+                append_results(save_path, all_results)
+                all_results = []
+
+        if save_path and all_results:
             append_results(save_path, all_results)
             all_results = []
 
-    if save_path and all_results:
-        append_results(save_path, all_results)
-        all_results = []
-
-    return all_results
+        return all_results

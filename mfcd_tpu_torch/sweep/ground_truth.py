@@ -25,22 +25,29 @@ from mfcd_tpu_torch.data.btl import btl_label, sample_and_split
 from mfcd_tpu_torch.eval.metrics import ground_truth_metrics
 from mfcd_tpu_torch.genx import generate_x
 from mfcd_tpu_torch.sweep.engine import compile_caps
+from mfcd_tpu_torch.utils import observability as obs
 
 
-def _gt_runs(rep_keys: torch.Tensor, s: float, cfg: RunConfig, t_cap: int,
+def _gt_runs(cfg_key: torch.Tensor, s: float, cfg: RunConfig, t_cap: int,
              extra_cap: int, budget, extra_budget):
-    """GT metrics ``(loss [R], accuracy [R])`` of ``[R, 2]`` rep keys.  Only
-    the labelled TEST split is built; the train/val label work of the full
-    engine is never done here."""
-    streams = rng.rep_streams(rep_keys)
-    x = generate_x(streams["x_gen"], cfg.n, cfg.m, cfg.d, cfg.generation)
-    splits = sample_and_split(
-        streams, x, t_cap=t_cap, extra_cap=extra_cap,
-        strategy=cfg.strategy, popularity_method=cfg.popularity_method,
-        alpha=cfg.alpha, budget=budget, extra_budget=extra_budget)
-    test = btl_label(streams["labels_test"], x, splits.test,
-                     splits.test_count, s, cfg.K, soft_label=False)
-    return ground_truth_metrics(x, test, cfg.batch_size)
+    """GT metrics ``(loss [R], accuracy [R])`` of the ``R = cfg.reps`` runs
+    of a config key.  Only the labelled TEST split is built; the train/val
+    label work of the full engine is never done here."""
+    obs.count_runs(cfg.reps)
+    with obs.stages() as stage:
+        stage("mfcd.generate")
+        streams = rng.rep_streams(rng.rep_keys(cfg_key, cfg.reps))
+        x = generate_x(streams["x_gen"], cfg.n, cfg.m, cfg.d, cfg.generation)
+        stage("mfcd.sample")
+        splits = sample_and_split(
+            streams, x, t_cap=t_cap, extra_cap=extra_cap,
+            strategy=cfg.strategy, popularity_method=cfg.popularity_method,
+            alpha=cfg.alpha, budget=budget, extra_budget=extra_budget)
+        stage("mfcd.label")
+        test = btl_label(streams["labels_test"], x, splits.test,
+                         splits.test_count, s, cfg.K, soft_label=False)
+        stage("mfcd.metrics")
+        return ground_truth_metrics(x, test, cfg.batch_size)
 
 
 def evaluate_ground_truth(
@@ -58,31 +65,32 @@ def evaluate_ground_truth(
     split is always hard-labelled).  ``device`` places the run (``None``:
     the card)."""
     device = resolve_device(device)
-    cfg = RunConfig(
-        n=int(n), m=int(m), d=int(d), p=float(p), s=float(s), K=int(K),
-        reps=int(reps), strategy=strategy,
-        popularity_method=popularity_method, alpha=float(alpha),
-        soft_label=bool(soft_label), generation=generation,
-    )
-    sh = cfg.shapes()
-    if pad_compiles:
-        t_cap, extra_cap = compile_caps(cfg)
-        shape_cfg = dataclasses.replace(cfg, s=0.0, p=0.0)
-    else:
-        t_cap, extra_cap = sh.num_triplets, sh.extra_test_triplets
-        shape_cfg = dataclasses.replace(cfg, s=0.0)
-    budget = extra_budget = None
-    if (sh.num_triplets, sh.extra_test_triplets) != (t_cap, extra_cap):
-        budgets = lambda v: torch.full((cfg.reps,), v, dtype=torch.int32,
-                                       device=device)
-        budget = budgets(sh.num_triplets)
-        extra_budget = budgets(sh.extra_test_triplets)
-    cfg_key = rng.config_key(prng.key(seed, device=device), config_index)
-    losses, accs = _gt_runs(rng.rep_keys(cfg_key, cfg.reps), cfg.s,
-                            shape_cfg, t_cap, extra_cap, budget,
-                            extra_budget)
-    return ([float(x) for x in losses.cpu().numpy()],
-            [float(x) for x in accs.cpu().numpy()])
+    with obs.call("evaluate_ground_truth", device):
+        cfg = RunConfig(
+            n=int(n), m=int(m), d=int(d), p=float(p), s=float(s), K=int(K),
+            reps=int(reps), strategy=strategy,
+            popularity_method=popularity_method, alpha=float(alpha),
+            soft_label=bool(soft_label), generation=generation,
+        )
+        sh = cfg.shapes()
+        if pad_compiles:
+            t_cap, extra_cap = compile_caps(cfg)
+            shape_cfg = dataclasses.replace(cfg, s=0.0, p=0.0)
+        else:
+            t_cap, extra_cap = sh.num_triplets, sh.extra_test_triplets
+            shape_cfg = dataclasses.replace(cfg, s=0.0)
+        budget = extra_budget = None
+        if (sh.num_triplets, sh.extra_test_triplets) != (t_cap, extra_cap):
+            budgets = lambda v: torch.full((cfg.reps,), v, dtype=torch.int32,
+                                           device=device)
+            budget = budgets(sh.num_triplets)
+            extra_budget = budgets(sh.extra_test_triplets)
+        cfg_key = rng.config_key(prng.key(seed, device=device), config_index)
+        losses, accs = _gt_runs(cfg_key, cfg.s, shape_cfg, t_cap, extra_cap,
+                                budget, extra_budget)
+        with obs.span("mfcd.export"):
+            return ([float(x) for x in losses.cpu().numpy()],
+                    [float(x) for x in accs.cpu().numpy()])
 
 
 def parameter_scan_ground_truth(
@@ -125,12 +133,14 @@ def parameter_scan_ground_truth(
             for combo in itertools.product(*listified.values())
         ]
 
-    results = []
-    for idx, params in enumerate(param_sets):
-        gt_loss, gt_accuracy = evaluate_ground_truth(
-            **params, device=device, reps=reps, seed=seed, config_index=idx)
-        results.append({
-            "params": params,
-            "results": {"gt_loss": gt_loss, "gt_accuracy": gt_accuracy},
-        })
-    return results
+    with obs.call("parameter_scan_ground_truth", device):
+        results = []
+        for idx, params in enumerate(param_sets):
+            gt_loss, gt_accuracy = evaluate_ground_truth(
+                **params, device=device, reps=reps, seed=seed,
+                config_index=idx)
+            results.append({
+                "params": params,
+                "results": {"gt_loss": gt_loss, "gt_accuracy": gt_accuracy},
+            })
+        return results

@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-from torch.profiler import record_function
 
 from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.data.btl import LabeledSplit
@@ -29,6 +28,7 @@ from mfcd_tpu_torch.ops.kernels import EpochState, train_epoch
 from mfcd_tpu_torch.ops.shuffle import (default_reshuffle_period, mix_stream,
                                         stream_tile_width)
 from mfcd_tpu_torch.train.trainer import _pad_last, batch_losses
+from mfcd_tpu_torch.utils import observability as obs
 
 
 def _pack_spec(n: int, m: int, label_denom: int):
@@ -120,19 +120,20 @@ def train_runs_kernel(
     train_losses, val_losses = [], []
     # Nothing in the loop reads the card back or copies a host value to it:
     # on the card an epoch is S2, K1 and the validation pass's launches.
-    for epoch in range(num_epochs):
-        with record_function("mfcd.train.mix"):
+    with obs.stages() as stage:
+        for epoch in range(num_epochs):
+            stage("mfcd.train.mix")
             stream = mix_stream(stream, epoch_keys[..., epoch, :], epoch,
                                 count, k_bits, period=period, tile_w=tile_w,
                                 folded=True)
-        with record_function("mfcd.train.epoch"):
+            stage("mfcd.train.epoch")
             step0 = float(epoch) * nonempty_batches
             state, loss = train_epoch(
                 state,
                 tuple(a.reshape(r, num_batches, batch_size).contiguous()
                       for a in stream),
                 lr, wd, step0, count, pack=kernel_pack)
-        with record_function("mfcd.train.val"):
+            stage("mfcd.train.val")
             epoch_params = MFParams(U=state.u_t.transpose(1, 2),
                                     V=state.v_t.transpose(1, 2))
             train_losses.append(loss)

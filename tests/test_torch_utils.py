@@ -96,20 +96,6 @@ def test_jsonl_logger_writes_the_jax_lines(runs, tmp_path):
         want.splitlines()[0])["metrics"].keys()
 
 
-def test_throughput_meter_summary_keys():
-    meters = (jobs.ThroughputMeter(), tobs.ThroughputMeter())
-    for m in meters:
-        m.add(runs=3, triplet_grads=1000)
-        m.add(runs=1)
-        assert (m.runs, m.triplet_grads) == (4, 1000)
-    jsum, tsum = (m.summary() for m in meters)
-    assert tsum.keys() == jsum.keys() == {
-        "elapsed_sec", "runs_per_hour", "triplet_grads_per_sec"}
-    assert all(v > 0 for v in tsum.values())
-    meters[1].reset()
-    assert (meters[1].runs, meters[1].triplet_grads) == (0, 0)
-
-
 def test_print_return_structure_types_prints_the_jax_text(runs, capsys):
     jres, tres = runs
     jdebug.print_return_structure_types({"results": jres, "e": []})
