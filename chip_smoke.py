@@ -180,7 +180,17 @@ Phases, each of which raises on failure (nothing is caught and continued):
    path makes: the canonical run, the bench bucket, the bench's sweep,
    hard K = 10 and 50 and scale_demo's configuration run at one epoch
    with S1's arguments recorded (``ab_shuffle_kernels.record_prp_calls``),
-   each call replayed as in (a).
+   each call replayed as in (a);
+15. the validation pass's kernel L1 (``ops/csrc/loss_pass.cu``) against
+   its plain version on the card at the hard K = 10 cell's validation
+   split (R = 5, 131,072 rows, 100,000 valid) and the canonical one
+   (R = 5, 16,384 rows, 10,000 valid), the tables as the trainer passes
+   them (``transpose(1, 2)`` views): per-batch and epoch means within
+   rtol 1e-5 / atol 1e-6, two passes bit-equal; its device ms a pass
+   (queued behind a spin kernel, as in [14]) and host issue ms beside the
+   plain version's and the bound (its bytes at the memory rate); and the
+   launches of [4]'s call: two a pass, 30 validation passes and one test
+   pass.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -333,6 +343,11 @@ ACC_MIN = 0.6
 # can issue as IMAD) and a slot's rotation (a compare and a select), or
 # S1's start of a slot's exact or inverse walk (the same two).
 MIX_OPS, HASH_OPS, SLOT_OPS = 14, 40, 2
+# [15] L1 at the cells' validation splits: (label, runs, rows, valid rows a
+# run), n = m = 1000, d = 2, bs = 64; its bound per tensor, as K1's loss.
+L1_SHAPES = (("hard K=10 val", 5, 131_072, 100_000),
+             ("canonical val", 5, 16_384, 10_000))
+L1_RTOL, L1_ATOL = 1e-5, 1e-6
 
 
 def log(msg: str) -> None:
@@ -3015,6 +3030,78 @@ def shuffle_phase(dev, smi, main_launches):
     return cases, loop, main_path
 
 
+def loss_pass_bytes(runs: int, rows: int, n: int, m: int, d: int,
+                    bs: int) -> int:
+    """L1's bytes, each once: a row's u, i, j, z and valid (17), the
+    tables, the per-batch and epoch means written."""
+    batches = -(-rows // bs)
+    return runs * (rows * 17 + (n + m) * d * 4 + (batches + 1) * 4)
+
+
+def loss_pass_phase(smi, main_launches):
+    """[15] L1 against its plain version at ``L1_SHAPES``, its device and
+    host ms a pass against the plain version's and the bound.  Returns
+    the entries."""
+    from mfcd_tpu_torch.data.btl import LabeledSplit
+    from mfcd_tpu_torch.models.mf import MFParams
+    from mfcd_tpu_torch.ops import loss_pass
+    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
+
+    n, m, d, bs = 1000, 1000, 2, 64
+    entries = []
+    for label, runs, rows, count in L1_SHAPES:
+        g = np.random.default_rng(rows)
+        dev = torch.device("cuda")
+        t = lambda a: torch.as_tensor(a, device=dev)
+        u = g.integers(0, n, (runs, rows)).astype(np.int32)
+        i = g.integers(0, m, (runs, rows)).astype(np.int32)
+        j = ((i + g.integers(1, m, (runs, rows))) % m).astype(np.int32)
+        z = (g.random((runs, rows)) < 0.5).astype(np.float32)
+        valid = np.tile(np.arange(rows) < count, (runs, 1))
+        split = LabeledSplit(t(u), t(i), t(j), t(z), t(valid),
+                             t(np.full(runs, count, np.int32)))
+        # the trainer's [R, d, n] storage, read as [R, n, d] views
+        params = MFParams(*[t((g.standard_normal((runs, d, k)) / np.sqrt(d))
+                              .astype(np.float32)).transpose(1, 2)
+                            for k in (n, m)])
+        want = loss_pass.batch_losses_reference(params, split, bs)
+        before = loss_pass.LOSS_LAUNCHES
+        got = loss_pass.batch_losses(params, split, bs)
+        again = loss_pass.batch_losses(params, split, bs)
+        torch.cuda.synchronize()
+        if loss_pass.LOSS_LAUNCHES != before + 4:
+            fail(f"[15] {label}: {loss_pass.LOSS_LAUNCHES - before} L1 "
+                 f"launches for two passes, expected 4")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"[15] {label}: two passes differ")
+        errs = []
+        for name, a, b in zip(("per-batch means", "epoch means"), want, got):
+            err = float((a - b).abs().max())
+            scale = float(a.abs().max())
+            errs.append(err)
+            if not torch.isfinite(b).all() or err > L1_RTOL * scale + L1_ATOL:
+                fail(f"[15] {label}: {name} max|diff| {err:.3g} > {L1_RTOL}"
+                     f" x max|ref| {scale:.3g} + {L1_ATOL}")
+        ms, host_ms = ab.queue_ms(
+            lambda: loss_pass.batch_losses(params, split, bs))
+        plain_ms = time_ms(
+            lambda: loss_pass.batch_losses_reference(params, split, bs),
+            warmup=1, reps=5)
+        nbytes = loss_pass_bytes(runs, rows, n, m, d, bs)
+        bound, by = bound_ms(nbytes)
+        entries.append(dict(label=label, runs=runs, rows=rows, valid=count,
+                            max_abs_err=max(errs), ms=ms, host_ms=host_ms,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                            bytes=nbytes))
+        log(f"[15] L1 {label} (R={runs}, {rows} rows, {count} valid): "
+            f"max|diff| per-batch {errs[0]:.3g}, epoch {errs[1]:.3g}; two "
+            f"passes bit-equal; device {ms:.6f} ms a pass (host issue "
+            f"{host_ms:.6f}), plain {plain_ms:.4f} ms, bound {bound:.6f} ms "
+            f"({by}, {nbytes} bytes); {smi}")
+    log(f"[15] L1 launches of [4]'s call: {main_launches['l1']}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3023,7 +3110,7 @@ def main() -> int:
     from mfcd_tpu_torch.backend import card_line
     from mfcd_tpu_torch.core.results import validate_schema
     from mfcd_tpu_torch.core import prng
-    from mfcd_tpu_torch.ops import _build, kernels, shuffle
+    from mfcd_tpu_torch.ops import _build, kernels, loss_pass, shuffle
 
     global PEAK_INT32_OPS
     t_all = time.perf_counter()
@@ -3069,6 +3156,7 @@ def main() -> int:
         kernels.EPOCH_LAUNCHES = 0
         shuffle.SHUFFLE_LAUNCHES = shuffle.PRP_LAUNCHES = 0
         prng.THREEFRY_LAUNCHES = 0
+        loss_pass.LOSS_LAUNCHES = 0
         t0 = time.perf_counter()
         out = mfcd_tpu_torch.parameter_scan(save_path=save_path,
                                             save_every=1, **CANON)
@@ -3077,7 +3165,8 @@ def main() -> int:
         launches = kernels.EPOCH_LAUNCHES
         main_launches = dict(s2=shuffle.SHUFFLE_LAUNCHES,
                              s1=shuffle.PRP_LAUNCHES,
-                             t1=prng.THREEFRY_LAUNCHES)
+                             t1=prng.THREEFRY_LAUNCHES,
+                             l1=loss_pass.LOSS_LAUNCHES)
         with open(save_path, "rb") as f:
             saved = pickle.load(f)
     if launches != CANON["num_epochs"]:
@@ -3089,6 +3178,10 @@ def main() -> int:
     if not (main_launches["s1"] > 0 and main_launches["t1"] > 0):
         fail(f"main path launched S1 {main_launches['s1']} and T1 "
              f"{main_launches['t1']} times")
+    if main_launches["l1"] != 2 * (CANON["num_epochs"] + 1):
+        fail(f"main path launched L1 {main_launches['l1']} times, expected "
+             f"2 for each of {CANON['num_epochs']} validation passes and "
+             f"the test loss")
     if out != [] or len(saved) != 1:
         fail("pickle protocol: expected one flushed experiment")
     res = saved[0]["results"]
@@ -3104,7 +3197,8 @@ def main() -> int:
     log(f"[4] main path: parameter_scan canonical, {runs} runs in "
         f"{wall:.3f} s ({wall / runs:.4f} s/run), {launches} K1 launches, "
         f"{main_launches['s2']} S2, {main_launches['s1']} S1, "
-        f"{main_launches['t1']} T1, mean accuracy {acc:.4f}, gt accuracy "
+        f"{main_launches['t1']} T1, {main_launches['l1']} L1, mean accuracy "
+        f"{acc:.4f}, gt accuracy "
         f"{float(np.mean(res['gt_accuracy'])):.4f}, final train loss "
         f"{float(np.mean([c[-1] for c in res['train_losses']])):.4f}")
 
@@ -3179,6 +3273,10 @@ def main() -> int:
                                                          main_launches)
     canon_shuffle = shuffle_cases[0]
     canon_prp = prp_main["canonical"][0]
+
+    # [15] The validation pass's kernel against its plain version at the
+    # cells' validation splits.
+    l1_entries = loss_pass_phase(smi, main_launches)
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
@@ -3261,6 +3359,17 @@ def main() -> int:
         "bound_by": canon_shuffle["threefry2x32"]["bits"]["bound_by"],
         "library_ms": None,
         "cases": {c["label"]: c["threefry2x32"] for c in shuffle_cases},
+    }, {
+        "name": "loss_pass",
+        "route": "cuda",
+        "source": "mfcd_tpu_torch/ops/csrc/loss_pass.cu",
+        "replaces": "none: XLA's fusion of mfcd_tpu/train/trainer.py:91",
+        "launches": main_launches["l1"],
+        "max_abs_err": max(e["max_abs_err"] for e in l1_entries),
+        **{k: l1_entries[0][k] for k in ("ms", "host_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+        "library_ms": None,
+        "cases": l1_entries,
     }] + split_entries + alt_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

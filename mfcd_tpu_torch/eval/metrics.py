@@ -27,7 +27,7 @@ from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.data.btl import LabeledSplit
 from mfcd_tpu_torch.models.mf import MFParams, forward_logits
 from mfcd_tpu_torch.ops.linalg import top_singular_values
-from mfcd_tpu_torch.train.trainer import (_pad_to_batches, batch_losses,
+from mfcd_tpu_torch.ops.loss_pass import (_pad_to_batches, batch_losses,
                                           map_batch_blocks)
 
 _EPS = 1e-8

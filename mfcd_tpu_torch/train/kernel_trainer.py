@@ -12,7 +12,9 @@ here, ``beta ** t`` there).  Per epoch:
    the loop; on the card one launch of S2),
 2. one ``train_epoch`` call trains every run's epoch (on the card: one
    kernel launch), with the Adam step count carried across epochs,
-3. a masked validation pass records the per-epoch val loss.
+3. a masked validation pass records the per-epoch val loss (on the
+   card two launches of L1, ``ops/loss_pass.py``, reading the epoch's
+   tables in place).
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.data.btl import LabeledSplit
 from mfcd_tpu_torch.models.mf import MFParams
 from mfcd_tpu_torch.ops.kernels import EpochState, train_epoch
+from mfcd_tpu_torch.ops.loss_pass import _pad_last, batch_losses
 from mfcd_tpu_torch.ops.shuffle import (default_reshuffle_period, mix_stream,
                                         stream_tile_width)
-from mfcd_tpu_torch.train.trainer import _pad_last, batch_losses
 from mfcd_tpu_torch.utils import observability as obs
 
 
@@ -119,7 +121,7 @@ def train_runs_kernel(
     epoch_keys = prng.split(epochs_keys.to(torch.int64), num_epochs)
     train_losses, val_losses = [], []
     # Nothing in the loop reads the card back or copies a host value to it:
-    # on the card an epoch is S2, K1 and the validation pass's launches.
+    # on the card an epoch is S2, K1 and the validation pass's two launches.
     with obs.stages() as stage:
         for epoch in range(num_epochs):
             stage("mfcd.train.mix")

@@ -5,7 +5,8 @@ Counterpart of ``mfcd_tpu/train/trainer.py`` (reference
 one keyed bijection (``mix_stream``), step through the
 ``ceil(count / batch_size)`` batches that hold valid rows, take a masked
 batch-mean BCE, and apply the dense coupled-weight-decay Adam; then a
-validation pass.  Per-epoch train/val losses are means of per-batch means.
+validation pass (``batch_losses``, from ``ops/loss_pass.py``: two kernel
+launches on the card).  Per-epoch train/val losses are means of per-batch means.
 
 Several runs train at once (``[R, ...]`` tensors).  Where JAX ran a
 ``fori_loop`` per run under ``vmap``, this loops to the largest trip count
@@ -20,66 +21,12 @@ from typing import Tuple
 import torch
 
 from mfcd_tpu_torch.data.btl import LabeledSplit
-from mfcd_tpu_torch.models.mf import MatrixFactorization, MFParams, forward_logits
+from mfcd_tpu_torch.models.mf import MatrixFactorization, MFParams
+from mfcd_tpu_torch.ops.loss_pass import _pad_last, batch_losses
 from mfcd_tpu_torch.ops.losses import bce_with_logits
 from mfcd_tpu_torch.ops.optim import adam_init, adam_update
 from mfcd_tpu_torch.ops.shuffle import (default_reshuffle_period, mix_stream,
                                         stream_tile_width)
-
-
-def _pad_last(a: torch.Tensor, pad: int, fill=0) -> torch.Tensor:
-    if pad == 0:
-        return a
-    return torch.nn.functional.pad(a, (0, pad), value=fill)
-
-
-def _pad_to_batches(split: LabeledSplit, batch_size: int):
-    """Pad ``[..., rows]`` fields to whole batches; returns ``[..., B, bs]``."""
-    rows = split.u.shape[-1]
-    num_batches = -(-rows // batch_size)
-    pad = num_batches * batch_size - rows
-    shape = split.u.shape[:-1] + (num_batches, batch_size)
-    return tuple(_pad_last(a, pad, False if a.dtype == torch.bool else 0)
-                 .reshape(shape)
-                 for a in (split.u, split.i, split.j, split.z, split.valid))
-
-
-# Batches per block in the streamed loss/eval passes.
-_LOSS_BLOCK_BATCHES = 64
-
-
-def map_batch_blocks(block_fn, arrays, num_batches: int,
-                     block: int = _LOSS_BLOCK_BATCHES):
-    """Apply ``block_fn`` to ``[..., block, bs]`` slices of ``[..., B, bs]``
-    arrays in turn and concatenate its per-batch ``[..., block]`` outputs."""
-    if num_batches <= block:
-        return block_fn(arrays)
-    outs = [block_fn(tuple(a[..., s:s + block, :] for a in arrays))
-            for s in range(0, num_batches, block)]
-    return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
-
-
-def batch_losses(params: MFParams, split: LabeledSplit, batch_size: int):
-    """Per-batch masked mean BCE ``[..., B]`` + the epoch average over
-    non-empty batches ``[...]``."""
-    u, i, j, z, valid = _pad_to_batches(split, batch_size)
-
-    def block_stats(args):
-        bu, bi, bj, bz, bv = args
-        losses = bce_with_logits(forward_logits(params, bu, bi, bj), bz)
-        return (torch.sum(torch.where(bv, losses, torch.zeros_like(losses)),
-                          dim=-1),
-                torch.sum(bv, dim=-1))
-
-    per_batch_sum, per_batch_cnt = map_batch_blocks(
-        block_stats, (u, i, j, z, valid), u.shape[-2])
-    nonempty = per_batch_cnt > 0
-    per_batch_mean = torch.where(
-        nonempty, per_batch_sum / torch.clamp(per_batch_cnt, min=1),
-        torch.zeros_like(per_batch_sum))
-    epoch_mean = (torch.sum(per_batch_mean, dim=-1)
-                  / torch.clamp(torch.sum(nonempty, dim=-1), min=1))
-    return per_batch_mean, epoch_mean
 
 
 def _where_runs(active: torch.Tensor, new: torch.Tensor,

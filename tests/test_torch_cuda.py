@@ -23,7 +23,10 @@ so do P1's and P2's state and loss (their ``alive`` sums follow the row
 split, and are held by the bound).  K2 runs a phase's steps out of pick
 order, each row's writes in pick order, and sums and rounds as its plain
 version does: bit-equal to it on the card and the CPU, at every launch
-shape, and its schedule equal to the plain schedule.
+shape, and its schedule equal to the plain schedule.  The validation
+pass's kernel (L1) sums a batch's rows and the epoch's means in another
+order than its plain version: within rtol 1e-5 / atol 1e-6, two launches
+a pass, the same bits on every pass and from either layout of the tables.
 """
 
 import math
@@ -1264,3 +1267,135 @@ def test_kernel_at_d8_takes_c16():
     got = _flat(_compare(state, args, pack, dev))
     again = _k1(state, args, pack, dev, 16)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+# L1, the validation pass (ops/loss_pass.py): (runs, rows, batch size, d,
+# counts, soft K, tables' layout).  Counts: None for every row; "mixed"
+# gives a run no valid row and others batches past their count that hold
+# only padding.  rows is never a multiple of the batch size but at the
+# hard K = 10 shape (131,072 rows, 100,000 valid), whose trailing batches
+# are padding.  "t" passes the tables as the trainer does: [R, d, n]
+# storage read through transpose(1, 2) views.
+L1_CASES = {
+    "R1": (1, 1000, 64, 2, None, None, "c"),
+    "R5-k10": (5, 131_072, 64, 2, [100_000] * 5, None, "t"),
+    "R285": (285, 10_000, 64, 2, "mixed", None, "t"),
+    "bs1": (3, 777, 1, 2, "mixed", None, "c"),
+    "bs1024": (3, 5000, 1024, 2, "mixed", None, "c"),
+    "count0-padding": (4, 3001, 64, 2, "mixed", None, "c"),
+    "soft10": (5, 10_000, 64, 2, "mixed", 10, "t"),
+    "d8": (2, 4999, 64, 8, "mixed", None, "c"),
+    "d8-t": (2, 4999, 64, 8, "mixed", None, "t"),
+    "k50-rows": (2, 524_288, 64, 2, [500_000, 499_990], None, "t"),
+}
+
+
+def _l1_inputs(dev, runs, rows, bs, d, counts, soft, layout, seed=41,
+               n=1000, m=1000):
+    from mfcd_tpu_torch.data.btl import LabeledSplit
+    from mfcd_tpu_torch.models.mf import MFParams
+
+    g = np.random.default_rng(seed)
+    if counts is None:
+        counts = [rows] * runs
+    elif counts == "mixed":
+        counts = [[rows, 0, rows // 3, 1][k % 4] for k in range(runs)]
+    u = g.integers(0, n, (runs, rows)).astype(np.int32)
+    i = g.integers(0, m, (runs, rows)).astype(np.int32)
+    j = ((i + g.integers(1, m, (runs, rows))) % m).astype(np.int32)
+    if soft:
+        z = (g.integers(0, soft + 1, (runs, rows)) / soft).astype(np.float32)
+    else:
+        z = (g.random((runs, rows)) < 0.5).astype(np.float32)
+    valid = np.arange(rows)[None, :] < np.asarray(counts)[:, None]
+    t = lambda a: torch.as_tensor(a, device=dev)
+    split = LabeledSplit(t(u), t(i), t(j), t(z), t(valid),
+                         t(np.asarray(counts, np.int32)))
+    tables = [(g.standard_normal((runs, k, d)) / np.sqrt(d)).astype(
+        np.float32) for k in (n, m)]
+    if layout == "t":
+        tables = [t(np.ascontiguousarray(a.transpose(0, 2, 1))).transpose(1, 2)
+                  for a in tables]
+    else:
+        tables = [t(a) for a in tables]
+    return MFParams(*tables), split
+
+
+def _l1_check(got, want):
+    """Per-batch and epoch means within float32 rounding of the plain
+    version (the kernel sums in another order); an empty batch's mean is
+    +0 exactly, as the plain version's."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.is_contiguous()
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    empty = want[0] == 0
+    assert torch.equal(got[0][empty].view(torch.int32),
+                       torch.zeros_like(got[0][empty]).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(L1_CASES))
+def test_loss_pass_matches_plain_version(case):
+    from mfcd_tpu_torch.ops import loss_pass as LP
+
+    dev = _card()
+    params, split = _l1_inputs(dev, *L1_CASES[case])
+    bs = L1_CASES[case][2]
+    want = LP.batch_losses_reference(params, split, bs)
+    before = LP.LOSS_LAUNCHES
+    got = LP.batch_losses(params, split, bs)
+    torch.cuda.synchronize()
+    assert LP.LOSS_LAUNCHES == before + 2
+    _l1_check(got, want)
+    if L1_CASES[case][-1] == "t":
+        # the same tables, contiguous: the same reads, the same bits
+        flat = params._replace(U=params.U.contiguous(),
+                               V=params.V.contiguous())
+        again = LP.batch_losses(flat, split, bs)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_loss_pass_repeats_its_bits_in_two_launches():
+    from mfcd_tpu_torch.ops import loss_pass as LP
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    dev = _card()
+    params, split = _l1_inputs(dev, *L1_CASES["R5-k10"])
+    first = LP.batch_losses(params, split, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = LP.batch_losses(params, split, 64)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    # no rows: only the epoch launch, every mean 0
+    empty = split._replace(**{f: getattr(split, f)[:, :0]
+                              for f in ("u", "i", "j", "z", "valid")})
+    means, epoch = LP.batch_losses(params, empty, 64)
+    assert means.shape == (5, 0) and torch.equal(epoch, torch.zeros_like(epoch))
+
+
+@pytest.mark.cuda
+def test_loss_pass_rejects_what_it_does_not_take():
+    from mfcd_tpu_torch.ops import loss_pass as LP
+
+    dev = _card()
+    params, split = _l1_inputs(dev, *L1_CASES["R1"])
+    bad = [(params, split._replace(u=split.u.long())),
+           (params, split._replace(z=split.z.double())),
+           (params, split._replace(valid=split.valid.to(torch.uint8))),
+           (params._replace(U=params.U.double()), split),
+           (params, split._replace(i=split.i.cpu())),
+           (params._replace(V=params.V.cpu()), split),
+           (params, split._replace(j=split.j[:, :999])),
+           (params._replace(U=params.U.expand(2, -1, -1)), split)]
+    before = LP.LOSS_LAUNCHES
+    for p, s in bad:
+        with pytest.raises(ValueError, match="batch_losses"):
+            LP.batch_losses(p, s, 64)
+    with pytest.raises(ValueError, match="batch_losses"):
+        LP.batch_losses(params, split, 0)
+    assert LP.LOSS_LAUNCHES == before

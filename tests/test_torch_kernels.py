@@ -312,10 +312,10 @@ def test_cpu_tensors_take_the_plain_version():
 def test_build_target_follows_included_headers(tmp_path):
     # The library's name hashes the source and every csrc/ header it
     # includes: an edit to the shared epoch header rebuilds both epoch
-    # kernel sources and neither the AltSVM kernel's, which includes no
-    # header, nor the threefry ones; an edit to threefry.cuh rebuilds the
-    # prng and shuffle kernels only; an edit to a header nothing includes
-    # rebuilds none.  No nvcc.
+    # kernel sources and neither the AltSVM kernel's nor the loss pass's,
+    # which include no header, nor the threefry ones; an edit to
+    # threefry.cuh rebuilds the prng and shuffle kernels only; an edit to a
+    # header nothing includes rebuilds none.  No nvcc.
     import os
     import shutil
 
@@ -326,9 +326,10 @@ def test_build_target_follows_included_headers(tmp_path):
     every = sorted(str(p) for p in tmp_path.glob("*.cu"))
     assert [os.path.basename(p) for p in every] == [
         "altsvm_dcd.cu", "epoch_kernel.cu", "epoch_variants.cu",
-        "prng_kernel.cu", "shuffle_kernel.cu"]
-    alone, sources, fry = every[0], every[1:3], every[3:]
-    assert _build._local_files(alone) == [alone]
+        "loss_pass.cu", "prng_kernel.cu", "shuffle_kernel.cu"]
+    alone, sources, fry = [every[0], every[3]], every[1:3], every[4:]
+    for src in alone:
+        assert _build._local_files(src) == [src]
     for src in sources:
         assert str(tmp_path / "epoch_body.cuh") in _build._local_files(src)
     for src in fry:
@@ -336,7 +337,7 @@ def test_build_target_follows_included_headers(tmp_path):
                                             str(tmp_path / "threefry.cuh")]
     before = [_build._target(src) for src in sources]
     fry_before = [_build._target(src) for src in fry]
-    alone_before = _build._target(alone)
+    alone_before = [_build._target(src) for src in alone]
     (tmp_path / "unused.cuh").write_text("// included by nothing\n")
     assert [_build._target(src) for src in sources] == before
     with open(tmp_path / "epoch_body.cuh", "a") as f:
@@ -345,7 +346,7 @@ def test_build_target_follows_included_headers(tmp_path):
     assert all(a != b for a, b in zip(before, after))
     assert all(os.path.basename(a).startswith(os.path.basename(b)[:-len(
         b.split("_")[-1])]) for a, b in zip(after, before))
-    assert _build._target(alone) == alone_before
+    assert [_build._target(src) for src in alone] == alone_before
     assert [_build._target(src) for src in fry] == fry_before
     with open(tmp_path / "threefry.cuh", "a") as f:
         f.write("// touched\n")
