@@ -1,10 +1,12 @@
 """Whether the calls the window drove gave the right answers.
 
-Each checked call is worked out again by the plain reference
-(``reference/``) from the call's seed and arguments, and its results are
-compared key by key.  A key's gap in one run is the norm of the
-difference over the norm of the reference's value (at least ``FLOOR``
-times the root of its size); a key's gap is the worst over the runs.  The
+Each checked call is worked out again by the cell's plain reference
+(``reference/``, found by the configuration's name: ``spec.reference``)
+from the call's seed and arguments, at the shapes its grid expands to,
+and its results are compared key by key.  A key's gap in one run is the
+norm of the difference over the norm of the reference's value (at least
+``FLOOR`` times the root of its size); a key's gap is the worst over the
+runs.  The
 numbers compared:
 
 - ``data_gap``: what the run draws before it trains: X*'s sampled rows and
@@ -36,7 +38,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from portbench.reference.pipeline import Pipeline, Shape
+from portbench.reference.pipeline import Shape
 from portbench.workload import STUDY_PARAMS
 
 FLOOR = 1e-3
@@ -119,13 +121,21 @@ def oracle_numbers(prog: List[Dict], ref: List[Dict]) -> Dict[str, float]:
     return {"oracle_gap": gap}
 
 
-def shape_of(config: dict) -> Shape:
-    st = config["study"]
-    return Shape(n=st["n"], m=st["m"], d=st["d"], p=st["p"], K=st["K"],
-                 num_epochs=st.get("num_epochs", 1),
-                 batch_size=st.get("batch_size", 64),
+def shape_of(conf: dict, args: dict, config: dict) -> Shape:
+    """The shape of one configuration of a call, as the program expanded
+    it (``conf``, one of :func:`_grid`'s dicts): its sizes and settings,
+    the call's batch size (the program's default, 64, where the call
+    gives none), and from the configuration file only the epoch period of
+    fresh shuffles, which the program takes from its environment."""
+    return Shape(n=conf["n"], m=conf["m"], d=conf["d"], p=conf["p"],
+                 K=conf["K"], num_epochs=conf.get("num_epochs", 1),
+                 batch_size=int(args.get("batch_size", 64)),
                  reshuffle_period=int(config["reshuffle_period"]),
-                 soft_label=bool(st.get("soft_label", False)))
+                 soft_label=bool(conf.get("soft_label", False)),
+                 strategy=conf.get("strategy", "random"),
+                 generation=conf.get("generation", "base"),
+                 popularity_method=conf.get("popularity_method"),
+                 alpha=conf.get("alpha"), d1=conf.get("d1"))
 
 
 def _grid(args: dict, order: Sequence[str] = STUDY_PARAMS) -> List[dict]:
@@ -137,28 +147,38 @@ def _grid(args: dict, order: Sequence[str] = STUDY_PARAMS) -> List[dict]:
     return [dict(zip(keys, c)) for c in itertools.product(*lists)]
 
 
-def reference_results(pipe: Pipeline, entry: str, args: dict,
-                      config: dict) -> List[Dict]:
+def reference_results(pipe, entry: str, args: dict, config: dict
+                      ) -> List[Dict]:
     """The reference's results for one call of an entry: one dict a
-    configuration, its runs worked out side by side.  Calls are worked
-    out one at a time, at the shapes the program ran them with: a
+    configuration, in the call's order.  ``pipe`` is the cell's reference
+    (``spec.Cell.reference``) at its precision.  The configurations of one
+    shape are worked out side by side, one shape after another.  Calls are
+    worked out one at a time, at the shapes the program ran them with: a
     reference batched over calls rounds its batched linear algebra
     otherwise, which ``svd_error_scaled``'s cancellation reads at 1e-3
     (PERF.md)."""
-    sh = shape_of(config)
     oracle = entry == "parameter_scan_ground_truth"
     if not oracle and entry not in ("parameter_scan", "parameter_scan_fast"):
         raise ValueError(f"no reference for entry {entry!r}")
     grid = _grid(args, ORACLE_PARAMS if oracle else STUDY_PARAMS)
-    seeds = [args["seed"]] * len(grid)
-    idx = list(range(len(grid)))
-    col = lambda key: [float(c[key]) for c in grid]
-    if oracle:
-        loss, acc = pipe.oracle_runs(seeds, idx, col("s"), args["reps"], sh)
-        return [{"gt_loss": lo, "gt_accuracy": ac}
-                for lo, ac in zip(loss, acc)]
-    return pipe.study_runs(seeds, idx, col("s"), col("lr"),
-                           col("weight_decay"), args["reps"], sh)
+    groups: Dict[Shape, List[int]] = {}
+    for c, conf in enumerate(grid):
+        groups.setdefault(shape_of(conf, args, config), []).append(c)
+    out: List[Dict] = [None] * len(grid)
+    for sh, idx in groups.items():
+        seeds = [args["seed"]] * len(idx)
+        col = lambda key: [float(grid[c][key]) for c in idx]
+        if oracle:
+            loss, acc = pipe.oracle_runs(seeds, idx, col("s"), args["reps"],
+                                         sh)
+            got = [{"gt_loss": lo, "gt_accuracy": ac}
+                   for lo, ac in zip(loss, acc)]
+        else:
+            got = pipe.study_runs(seeds, idx, col("s"), col("lr"),
+                                  col("weight_decay"), args["reps"], sh)
+        for c, res in zip(idx, got):
+            out[c] = res
+    return out
 
 
 def numbers_against(entry: str, results: List[Dict], ref: List[Dict]
@@ -171,7 +191,7 @@ def numbers_against(entry: str, results: List[Dict], ref: List[Dict]
     return study_numbers(prog, ref)
 
 
-def numbers(pipe: Pipeline, entry: str, checked: Sequence, config: dict
+def numbers(pipe, entry: str, checked: Sequence, config: dict
             ) -> Dict[str, float]:
     """The worst of each number over the checked calls, each given as
     (call arguments, the program's results)."""

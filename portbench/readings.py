@@ -73,7 +73,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from portbench import check, faults, spec, workload
-    from portbench.reference.pipeline import Pipeline
     from portbench.run import call_args, entry_point, set_environment
 
     cell = spec.load_cell(args.workload)
@@ -97,7 +96,7 @@ def main(argv=None) -> int:
             a = plan.call(k)
             calls.append((a, fn(device=args.device, **call_args(fn, a))))
             sync()
-        fp32 = Pipeline(args.device)
+        fp32 = cell.reference(args.device)
         refs = []
         t0 = time.perf_counter()
         for a, _ in calls:
@@ -116,13 +115,15 @@ def main(argv=None) -> int:
                   file=out, flush=True)
         block = int(cell.traffic.get("check_calls", 1))
         picked = calls[:args.controls * block]
-        sides = [("control", Pipeline(args.device, tf32=True), highs)]
+        sides = [("control", cell.reference(args.device, tf32=True),
+                  highs)]
         if args.faults:
             names = (faults.ORACLE if plan.entry ==
                      "parameter_scan_ground_truth"
                      else faults.TRAINING + faults.READ_ONLY)
-            sides += [(name, faults.FaultyPipeline(args.device, name),
-                       planted.setdefault(name, {})) for name in names]
+            sides += [(name, faults.planted(cell.reference, name)(
+                args.device), planted.setdefault(name, {}))
+                for name in names]
         for side, pipe, mins in sides:
             got = [check.reference_results(pipe, plan.entry, a,
                                            cell.config) for a, _ in picked]

@@ -24,7 +24,7 @@ replays of a CUDA graph on the card, and eagerly on the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,7 +46,9 @@ def next_pow2(x: int) -> int:
 
 @dataclass(frozen=True)
 class Shape:
-    """The sizes of one configuration (every run of a call shares them)."""
+    """One configuration's sizes and settings, every study parameter but
+    the per-run values (s, lr, weight decay): the configurations of one
+    shape are worked out side by side."""
 
     n: int
     m: int
@@ -57,6 +59,11 @@ class Shape:
     batch_size: int
     reshuffle_period: int
     soft_label: bool = False
+    strategy: str = "random"
+    generation: str = "base"
+    popularity_method: Optional[str] = None
+    alpha: Optional[float] = None
+    d1: Optional[int] = None
 
     @property
     def triplets(self) -> int:
@@ -81,7 +88,16 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 class Pipeline:
     """The study's computations at one precision: float32 (``tf32`` off)
-    or with every product's operands rounded to TF32."""
+    or with every product's operands rounded to TF32.
+
+    A configuration's own reference (``reference/<config>.py``) subclasses
+    it, computes what it adds, and widens :meth:`refuse` to let it
+    through."""
+
+    # The value of each setting this reference computes; a shape that asks
+    # for another is refused, never worked out as this one.
+    COMPUTES = {"strategy": "random", "generation": "base",
+                "popularity_method": None, "alpha": None, "d1": None}
 
     def __init__(self, device, tf32: bool = False):
         self.device = torch.device(device)
@@ -92,6 +108,17 @@ class Pipeline:
 
     def _p(self, x: torch.Tensor) -> torch.Tensor:
         return tf32_round(x) if self.tf32 else x
+
+    def refuse(self, sh: Shape) -> None:
+        """Raise NotImplementedError, naming the setting and its value,
+        where ``sh`` asks for what this reference does not compute."""
+        for name, value in self.COMPUTES.items():
+            got = getattr(sh, name)
+            if got != value:
+                raise NotImplementedError(
+                    f"{type(self).__name__} computes {name}={value!r} only, "
+                    f"not {name}={got!r}: the configuration needs a "
+                    f"reference of its own (reference/<config>.py)")
 
     def _mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self._p(a) @ self._p(b)
@@ -279,12 +306,25 @@ class Pipeline:
         rho, c = rho.unsqueeze(-1), count.unsqueeze(-1)
         return torch.where(p < c - rho, p + rho, p + rho - c)
 
+    @property
+    def trainer(self):
+        """The class that trains a call's runs."""
+        return _Trainer
+
     def train(self, U, V, train, val, epochs_key, lr, wd, sh: Shape):
         """Dense coupled-weight-decay Adam over the shuffled training rows;
         returns (U, V, train losses [R, E], val losses [R, E])."""
-        return _Trainer(self, U, V, train, val, epochs_key, lr, wd, sh).run()
+        return self.trainer(self, U, V, train, val, epochs_key, lr, wd,
+                            sh).run()
 
     # -- metrics --------------------------------------------------------------------
+
+    @staticmethod
+    def test_labels(sh: Shape) -> int:
+        """Hard labels in one run's test split."""
+        t = sh.triplets
+        return (t - int(TRAIN_RATIO * t) - int(VAL_RATIO * t)
+                + sh.extra_test) * sh.K
 
     def test_scores(self, U, V, test, bs: int):
         loss = self.split_loss(U, V, test, bs)
@@ -431,6 +471,7 @@ class Pipeline:
         ``seeds[c]``, with ``reps`` repetitions; one result dict a
         configuration, whose values carry the repetition axis (masked row
         keys as lists)."""
+        self.refuse(sh)
         keys = self.rep_keys(seeds, config_indices, reps)
         st = self.streams(keys)
         runs = lambda v: torch.as_tensor(np.asarray(v, np.float32),
@@ -468,6 +509,7 @@ class Pipeline:
                     reps: int, sh: Shape):
         """The ground-truth oracle's (loss, accuracy), each ``[C, reps]``,
         of configurations of one shape (as :meth:`study_runs` names them)."""
+        self.refuse(sh)
         keys = self.rep_keys(seeds, config_indices, reps)
         st = self.streams(keys)
         x = self.generate_x(st["x_gen"], sh)

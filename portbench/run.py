@@ -17,7 +17,8 @@ and the program (``mfcd_tpu_torch``).  One run:
    closes at the end of the first call that ends after that;
 5. with ``--trace 1``, profiles the mix's traced calls after the window;
 6. recomputes a sample of the window's calls, drawn from the seed, with
-   the plain reference (``reference/``) and compares them (``check.py``);
+   the configuration's plain reference (``reference/``, found by its
+   name) and compares them (``check.py``);
 7. prints one JSON line: ``correct``, ``attempted``, ``failed``,
    ``metrics`` (the cell's end-to-end metrics, or its per-layer ones with
    ``--trace 1``), ``device``, with ``--trace 1`` ``breakdown``, and last
@@ -93,7 +94,6 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str,
     import torch
 
     from portbench import check, spec, tracing, workload
-    from portbench.reference.pipeline import Pipeline
 
     if program is None:
         import mfcd_tpu_torch as program
@@ -173,7 +173,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device: str,
         torch.cuda.empty_cache()
     sample = checked.sample()
     t_ref = time.perf_counter()
-    nums = (check.numbers(Pipeline(device), plan.entry,
+    nums = (check.numbers(cell.reference(device), plan.entry,
                           [(args, res) for _, args, res in sample],
                           cell.config) if sample else {})
     ok = check.verdict(nums, cell.limits, failed)

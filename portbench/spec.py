@@ -12,10 +12,14 @@ belong to one name sit under this directory:
   compares in that cell;
 - ``e2e/<metric>.py`` and ``metrics/<metric>.py``: one reader per
   end-to-end and per-layer metric, each a ``read(...)`` that returns a
-  number or None.
+  number or None;
+- ``reference/<config>.py``, where a configuration needs more than the
+  plain reference computes: a ``Pipeline`` of its own (as a rule a
+  subclass of ``reference/pipeline.py``'s), which the check and the
+  faults take in the plain one's place.
 
-A later cell, mix or metric is a new file and a new entry; no file here
-needs an edit for it.
+A later configuration, cell, mix or metric is a new file and a new entry;
+no file here needs an edit for it.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import importlib.util
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Type
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -44,6 +48,7 @@ class Cell:
     limits: dict
     end_to_end: List[dict]
     per_layer: List[dict]
+    reference: Type
 
 
 def load_benchmark() -> dict:
@@ -70,26 +75,45 @@ def load_cell(name: str) -> Cell:
                 end_to_end=[m for m in bench["end_to_end"]
                             if _applies(m, name)],
                 per_layer=[m for m in bench["per_layer"]
-                           if _applies(m, name)])
+                           if _applies(m, name)],
+                reference=reference(w["config"]))
 
 
-_readers: Dict[str, object] = {}
+_modules: Dict[str, object] = {}
+
+
+def _load(kind: str, name: str):
+    """The module ``<kind>/<name>.py``, loaded by path once: names may
+    hold dots."""
+    key = f"{kind}/{name}"
+    if key not in _modules:
+        spec = importlib.util.spec_from_file_location(
+            f"portbench_{kind}_{name.replace('.', '_').replace('-', '_')}",
+            os.path.join(HERE, kind, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _modules[key] = mod
+    return _modules[key]
 
 
 def reader(kind: str, name: str):
     """The module ``<kind>/<name>.py`` (``kind`` is ``e2e`` or
-    ``metrics``), loaded by path: metric names may hold dots.  A name
-    ``<base>.<part>`` with no file of its own (a metric split by the
-    end-to-end metric it moves) is read by ``<base>``'s reader."""
-    key = f"{kind}/{name}"
-    if key not in _readers:
-        path = os.path.join(HERE, kind, name + ".py")
-        if not os.path.exists(path) and "." in name:
-            _readers[key] = reader(kind, name.rsplit(".", 1)[0])
-            return _readers[key]
-        spec = importlib.util.spec_from_file_location(
-            f"portbench_{kind}_{name.replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _readers[key] = mod
-    return _readers[key]
+    ``metrics``).  A name ``<base>.<part>`` with no file of its own (a
+    metric split by the end-to-end metric it moves) is read by
+    ``<base>``'s reader."""
+    if (not os.path.exists(os.path.join(HERE, kind, name + ".py"))
+            and "." in name):
+        return reader(kind, name.rsplit(".", 1)[0])
+    return _load(kind, name)
+
+
+def reference(config: str) -> Type:
+    """Configuration ``config``'s plain reference: the ``Pipeline`` of
+    ``reference/<config>.py`` where that file exists, else the plain
+    ``reference/pipeline.py``'s, which refuses, by name, any setting it
+    does not compute."""
+    if os.path.exists(os.path.join(HERE, "reference", config + ".py")):
+        return _load("reference", config).Pipeline
+    from portbench.reference import pipeline
+
+    return pipeline.Pipeline

@@ -9,14 +9,17 @@ ground-truth accuracy by one test label) come out not correct.  The cells run on
 can be left out.  Without a card, the command refuses to measure."""
 
 import copy
+import json
+import os
+import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from portbench import faults, run, spec
-from portbench.reference.pipeline import Pipeline
 
 CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 SEED = 2**31 + 4321
@@ -63,7 +66,7 @@ class _Control:
 
     def __init__(self, cell, pipe=None):
         self.cell = cell
-        self.pipe = pipe or Pipeline("cpu", tf32=True)
+        self.pipe = pipe or cell.reference("cpu", tf32=True)
 
     def _results(self, entry, args):
         from portbench import check
@@ -159,7 +162,7 @@ def test_a_fault_is_not_correct(name, fault, kernel_path, monkeypatch):
 @pytest.mark.parametrize("name", CELLS)
 def test_the_float32_reference_in_the_programs_place_is_correct(name):
     cell = tiny(name)
-    line = _run(cell, program=_Control(cell, Pipeline("cpu")))
+    line = _run(cell, program=_Control(cell, cell.reference("cpu")))
     assert line["correct"] is True
 
 
@@ -172,9 +175,181 @@ REF_CASES = [(c, f) for c in CELLS for f in (
 @pytest.mark.parametrize("name,fault", REF_CASES)
 def test_a_fault_planted_in_the_reference_is_not_correct(name, fault):
     cell = tiny(name)
-    pipe = faults.FaultyPipeline("cpu", fault)
+    pipe = faults.planted(cell.reference, fault)("cpu")
     line = _run(cell, program=_Control(cell, pipe))
     assert line["correct"] is False
+
+
+def _as_before(pipe, entry, args, config):
+    """The reference's results as the check worked them out before it
+    followed the call: one shape, read from the configuration file, for
+    every configuration of the call."""
+    from portbench import check
+    from portbench.reference.pipeline import Shape
+
+    st = config["study"]
+    sh = Shape(n=st["n"], m=st["m"], d=st["d"], p=st["p"], K=st["K"],
+               num_epochs=st["num_epochs"], batch_size=st["batch_size"],
+               reshuffle_period=config["reshuffle_period"],
+               soft_label=st["soft_label"])
+    oracle = entry == "parameter_scan_ground_truth"
+    grid = check._grid(args, check.ORACLE_PARAMS if oracle
+                       else check.STUDY_PARAMS)
+    seeds, idx = [args["seed"]] * len(grid), list(range(len(grid)))
+    col = lambda key: [float(c[key]) for c in grid]
+    if oracle:
+        loss, acc = pipe.oracle_runs(seeds, idx, col("s"), args["reps"], sh)
+        return [{"gt_loss": lo, "gt_accuracy": ac}
+                for lo, ac in zip(loss, acc)]
+    return pipe.study_runs(seeds, idx, col("s"), col("lr"),
+                           col("weight_decay"), args["reps"], sh)
+
+
+BEFORE = ["canonical.scan", "labels_k10.scan", "canonical.oracle",
+          "canonical.grid"]
+
+
+@pytest.mark.parametrize("name", BEFORE)
+def test_the_cells_before_a_reference_by_name_get_the_same_results(name):
+    from portbench import check, workload
+
+    cell = tiny(name)
+    plan = workload.Plan(cell.traffic["entry"], cell.config["study"],
+                         cell.traffic, SEED)
+    args = plan.call(0)
+    pipe = cell.reference("cpu")
+    got = check.reference_results(pipe, plan.entry, args, cell.config)
+    want = _as_before(pipe, plan.entry, args, cell.config)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in g:
+            for a, b in zip(np.atleast_1d(g[key]), np.atleast_1d(w[key])):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_a_call_over_two_shapes_is_checked_shape_by_shape(kernel_path):
+    # K differs from the configuration file's and between configurations:
+    # the reference follows the call, one shape after another.
+    import mfcd_tpu_torch
+    from portbench import check, workload
+
+    cell = tiny("canonical.scan")
+    plan = workload.Plan("parameter_scan", cell.config["study"],
+                         cell.traffic, SEED)
+    args = dict(plan.call(0), K=[2, 3], s=[0.5, 4.0])
+    results = mfcd_tpu_torch.parameter_scan(device="cpu",
+                                            **run.call_args(
+                                                mfcd_tpu_torch.parameter_scan,
+                                                args))
+    # s expands slower than K: the two shapes interleave
+    assert [r["params"]["K"] for r in results] == [2, 3, 2, 3]
+    pipe = cell.reference("cpu")
+    ref = check.reference_results(pipe, "parameter_scan", args, cell.config)
+    nums = check.numbers_against("parameter_scan", results, ref)
+    assert check.verdict(nums, cell.limits, 0), nums
+    # the K = 3 configurations, worked out alone, as the call's 2nd and 4th
+    sh = check.shape_of(check._grid(args)[1], args, cell.config)
+    assert sh.K == 3
+    alone = pipe.study_runs([args["seed"]] * 2, [1, 3], [0.5, 4.0],
+                            [1e-3] * 2, [args["weight_decay"]] * 2,
+                            args["reps"], sh)
+    for got, want in zip(ref[1::2], alone):
+        np.testing.assert_array_equal(got["accuracy"], want["accuracy"])
+    # the file's K = 1 shape would have been another computation
+    assert check.numbers_against(
+        "parameter_scan", results,
+        _as_before(pipe, "parameter_scan", args, cell.config)
+    )["data_gap"] > 0.01
+
+
+STAND_IN = """
+from portbench.reference import pipeline
+
+
+class Pipeline(pipeline.Pipeline):
+    \"\"\"A stand-in configuration's reference: the plain one, counting
+    the calls it works out.\"\"\"
+
+    calls, file = 0, __file__
+
+    def study_runs(self, *args, **kwargs):
+        type(self).calls += 1
+        return super().study_runs(*args, **kwargs)
+"""
+
+DRIVE = """
+import copy, json
+from mfcd_tpu_torch.sweep import engine
+from portbench import run, spec
+
+engine.default_use_kernel = lambda cfg, dev: True
+cell = copy.deepcopy(spec.load_cell("stand_in.scan"))
+cell.config["study"].update(n=24, m=28, p=0.4, num_epochs=3)
+cell.traffic.update(check_calls=2, warmup_calls=1)
+line = run.execute(cell, %d, 0.3, False, "cpu")
+plain = spec.load_cell("canonical.scan").reference
+print(json.dumps({"file": cell.reference.file,
+                  "calls": cell.reference.calls,
+                  "correct": line["correct"],
+                  "plain": plain.__module__,
+                  "rates": sorted(line["metrics"])}))
+"""
+
+
+def _files(root):
+    out = {}
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for f in files:
+            path = os.path.join(dirpath, f)
+            out[os.path.relpath(path, root)] = open(path, "rb").read()
+    return out
+
+
+def test_a_configuration_joins_by_new_files_and_entries_alone(tmp_path):
+    """A copy of the benchmark gains a configuration with its own
+    reference, and a cell judged under a rate the benchmark has: only new
+    files and appended entries, and the run finds and uses that
+    reference."""
+    shutil.copytree(spec.HERE, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = spec.load_benchmark()
+    before = _files(tmp_path / "portbench")
+    base = tmp_path / "portbench"
+    config = json.load(open(base / "configs" / "canonical_1000.json"))
+    config["name"] = "stand_in"
+    json.dump(config, open(base / "configs" / "stand_in.json", "w"))
+    (base / "reference" / "stand_in.py").write_text(STAND_IN)
+    shutil.copy(base / "limits" / "canonical.scan.json",
+                base / "limits" / "stand_in.scan.json")
+    grown = copy.deepcopy(bench)
+    grown["configs"].append(dict(bench["configs"][0], name="stand_in",
+                                 file="portbench/configs/stand_in.json"))
+    grown["workloads"].append({"name": "stand_in.scan",
+                               "config": "stand_in",
+                               "traffic": "scan.cell3.reps5", "chips": 1,
+                               "why": "a stand-in"})
+    for m in grown["end_to_end"]:
+        if m["name"] == "runs_per_hour":
+            m["workloads"].append("stand_in.scan")
+    json.dump(grown, open(tmp_path / "BENCHMARK.json", "w"))
+    after = _files(tmp_path / "portbench")
+    assert {k: after[k] for k in before} == before
+    assert sorted(set(after) - set(before)) == [
+        "configs/stand_in.json", "limits/stand_in.scan.json",
+        "reference/stand_in.py"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), spec.ROOT]))
+    r = subprocess.run([sys.executable, "-c", DRIVE % SEED],
+                       capture_output=True, text=True, cwd=tmp_path,
+                       env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["file"] == str(base / "reference" / "stand_in.py")
+    assert out["calls"] >= 1 and out["correct"] is True
+    assert out["plain"] == "portbench.reference.pipeline"
+    assert out["rates"] == ["runs_per_hour", "setup_s"]
 
 
 def test_without_a_card_the_command_measures_nothing(monkeypatch, capsys):

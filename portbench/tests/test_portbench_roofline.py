@@ -10,6 +10,7 @@ from portbench import roofline, spec, workload
 SHAPES = {  # cell: (runs a launch, K, soft labels)
     "canonical.scan": (5, 1, True),
     "labels_k10.scan": (5, 10, True),
+    "labels_k50.scan": (5, 50, True),
     "canonical.grid": (330, 1, True),
 }
 
@@ -84,6 +85,32 @@ def test_shares_read_from_a_summary():
     mfu = spec.reader("metrics", "run_mfu").read(s, ctx)
     expect = 100 * 4 * 30 * 1250 * 66118 / (2.0 * 67e12)
     assert mfu == pytest.approx(expect)
+
+
+def test_k50_counts_its_soft_rows_once():
+    # 50 votes a triplet averaged into one row: 80,000 training rows a run
+    # (1,250 steps of 64), not 50 times that; the label takes a float32
+    # of its own beside u, i, j
+    from portbench.tracing import Summary
+    from portbench.workload import Window
+
+    cell = spec.load_cell("labels_k50.scan")
+    st = cell.config["study"]
+    assert roofline.study_stream(st) == (80000, 8)
+    assert roofline.train_rows(1000, 1000, 0.2, 50) == 4000000
+    bound = roofline.k1_bound_s(5, 5 * 1250, 1000, 1000, 2, 64, 8)
+    s = Summary(window_s=1.0, busy_s=0.5, launches=30,
+                by_name={"void epoch_kernel<true, 8, false>(float*)":
+                         (30, 30 * bound * 500)},
+                by_span={}, idle_by_span={})
+    ctx = {"cell": cell, "runs_per_call": 5,
+           "traced": {"calls": 1, "runs": 5},
+           "window": Window([type("C", (), {"ok": True, "runs": 5})()],
+                            0.0, 2.0, 0.0)}
+    assert spec.reader("metrics", "k1_roofline.k50").read(
+        s, ctx) == pytest.approx(0.2)
+    assert spec.reader("metrics", "run_mfu.k50").read(
+        s, ctx) == pytest.approx(100 * 5 * 30 * 1250 * 66118 / (2.0 * 67e12))
 
 
 def test_a_call_in_two_chunks_counts_each_run_once():

@@ -2,6 +2,7 @@
 traffic mix, limit and metric is found by its name, and the file keeps to
 the benchmark's contract (names, units, sources, lengths, run budget)."""
 
+import copy
 import json
 import os
 import re
@@ -123,17 +124,85 @@ def test_oracle_reports_its_own_rate_only():
             assert "oracle_runs_per_hour" not in names
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_each_cell_has_one_rate_of_its_own_bound(cell):
-    # a cell's rate is its own metric, so its bound follows its own spread
-    c = spec.load_cell(cell)
-    rates = [m["name"] for m in c.end_to_end if "runs_per_hour" in m["name"]]
-    assert len(rates) == 1
-    rate = rates[0]
-    for m in BENCH["end_to_end"]:
-        if m["name"] == rate:
-            assert m["workloads"] == [cell]
-    assert {m["moves"] for m in c.per_layer} <= {rate}
+# The cell each rate was made for, whose spread set its bound: it stays
+# first in the rate's ``workloads``.  A later cell joins a rate by being
+# appended there, where the bound is at least 5x its own spread (PERF.md).
+MADE_FOR = {"runs_per_hour": "canonical.scan",
+            "runs_per_hour.k10": "labels_k10.scan",
+            "runs_per_hour.grid": "canonical.grid",
+            "oracle_runs_per_hour": "canonical.oracle",
+            "runs_per_hour.k50": "labels_k50.scan"}
+
+
+def rate_faults(bench) -> list:
+    """How ``bench`` breaks the rule of rates: each cell reports exactly
+    one rate, every rate lists its cells with the cell it was made for
+    first, and every per-layer metric of a cell moves that cell's rate."""
+    rates = {m["name"]: m for m in bench["end_to_end"]
+             if "runs_per_hour" in m["name"]}
+    faults = []
+    for name, m in rates.items():
+        cells = m.get("workloads", [])
+        if not cells or cells[0] != MADE_FOR.get(name):
+            faults.append(f"{name} lists {cells}, not "
+                          f"{MADE_FOR.get(name)} first")
+    for w in bench["workloads"]:
+        cell = w["name"]
+        mine = [r for r, m in rates.items() if cell in m.get("workloads", [])]
+        if len(mine) != 1:
+            faults.append(f"{cell} reports {len(mine)} rates: {mine}")
+        for m in bench["per_layer"]:
+            if cell in m.get("workloads", [cell]) and m["moves"] not in mine:
+                faults.append(f"{m['name']} in {cell} moves {m['moves']}")
+    return faults
+
+
+def test_each_cell_reports_one_rate_that_lists_it():
+    assert rate_faults(BENCH) == []
+
+
+def _with_cell(name="canonical.scan2", rates=("runs_per_hour",)):
+    """BENCH with one more cell, appended to each of ``rates``."""
+    bench = copy.deepcopy(BENCH)
+    bench["workloads"].append({"name": name, "config": "canonical_1000",
+                               "traffic": "scan.cell3.reps5", "chips": 1,
+                               "why": "a second scan"})
+    for m in bench["end_to_end"]:
+        if m["name"] in rates:
+            m["workloads"].append(name)
+    return bench
+
+
+def test_a_cell_appended_to_a_rate_is_accepted():
+    bench = _with_cell()
+    assert rate_faults(bench) == []
+    runs = next(m for m in bench["end_to_end"]
+                if m["name"] == "runs_per_hour")
+    assert runs["workloads"] == ["canonical.scan", "canonical.scan2"]
+
+
+@pytest.mark.parametrize("rates", [("runs_per_hour", "runs_per_hour.k10"),
+                                   ()], ids=["two rates", "no rate"])
+def test_a_cell_with_two_rates_or_none_is_refused(rates):
+    assert rate_faults(_with_cell(rates=rates)) == [
+        f"canonical.scan2 reports {len(rates)} rates: {list(rates)}"]
+
+
+def test_a_cell_put_before_the_one_a_rate_was_made_for_is_refused():
+    bench = _with_cell()
+    runs = next(m for m in bench["end_to_end"]
+                if m["name"] == "runs_per_hour")
+    runs["workloads"].reverse()
+    assert len(rate_faults(bench)) == 1
+
+
+def test_a_per_layer_metric_that_moves_another_cells_rate_is_refused():
+    bench = _with_cell()
+    bench["per_layer"][0]["workloads"].append("canonical.scan2")
+    assert rate_faults(bench) == []
+    bench["per_layer"][1]["workloads"].append("canonical.scan2")
+    assert rate_faults(bench) == [
+        "launches_per_run.k10 in canonical.scan2 moves runs_per_hour.k10"]
 
 
 def test_a_split_metric_falls_back_to_its_base_reader():
@@ -147,6 +216,34 @@ def test_a_split_metric_falls_back_to_its_base_reader():
             is spec.reader("e2e", "runs_per_hour"))
     with pytest.raises(FileNotFoundError):
         spec.reader("metrics", "no_such_metric")
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_configuration_without_a_reference_of_its_own_gets_the_plain_one(
+        cell):
+    from portbench.reference import pipeline
+
+    c = spec.load_cell(cell)
+    assert not os.path.exists(os.path.join(spec.HERE, "reference",
+                                           c.config["name"] + ".py"))
+    assert c.reference is pipeline.Pipeline
+
+
+@pytest.mark.parametrize("setting,value", [
+    ("strategy", "margin"), ("generation", "svd"),
+    ("popularity_method", "zipf"), ("alpha", 1.5), ("d1", 3)])
+def test_the_plain_reference_refuses_what_it_does_not_compute(setting,
+                                                              value):
+    from portbench.reference.pipeline import Pipeline, Shape
+
+    sh = Shape(n=6, m=7, d=2, p=0.5, K=1, num_epochs=1, batch_size=8,
+               reshuffle_period=4, **{setting: value})
+    pipe = Pipeline("cpu")
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(f"not {setting}={value!r}")):
+        pipe.study_runs([1], [0], [1.0], [1e-3], [0.0], 1, sh)
+    with pytest.raises(NotImplementedError, match=setting):
+        pipe.oracle_runs([1], [0], [1.0], 1, sh)
 
 
 def test_an_unknown_cell_is_refused():
