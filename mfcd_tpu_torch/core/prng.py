@@ -225,9 +225,10 @@ def threefry2x32(k0, k1, x0, x1):
 
 def key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.key_data(jax.random.key(seed))`` for a 32-bit seed (jax
-    without x64 keeps its low word: ``[0, seed mod 2^32]``)."""
-    return torch.tensor([0, int(seed) & M32], dtype=torch.int64,
-                        device=device)
+    without x64 keeps its low word: ``[0, seed mod 2^32]``).  Made on the
+    device, not copied to it: a copy from the host waits for the stream."""
+    return torch.arange(2, dtype=torch.int64, device=device) * (
+        int(seed) & M32)
 
 
 def fold_in_reference(k: torch.Tensor, data) -> torch.Tensor:
@@ -322,16 +323,16 @@ def bits_at(k: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
                         k.device)
 
 
-def _as_f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-
-def _uniform_from_bits(words: torch.Tensor, minval, maxval) -> torch.Tensor:
+def _uniform_from_bits(words: torch.Tensor, minval: float,
+                       maxval: float) -> torch.Tensor:
     words = (words >> 9) | 0x3F800000
     floats = words.to(torch.int32).view(torch.float32) - 1.0
-    lo = _as_f32(minval, words.device)
-    hi = _as_f32(maxval, words.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # The bounds stay on the host as float32 values (and their float32
+    # difference): the same float32 products and sums as jax's, and no
+    # copy to the card, which would wait for its stream.
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    return torch.clamp(floats * span + float(lo), min=float(lo))
 
 
 def uniform(k: torch.Tensor, shape: Sequence[int] = (), minval=0.0,

@@ -30,6 +30,7 @@ from mfcd_tpu_torch.sampling import (first_occurrence_winners, plan_overdraw,
 from mfcd_tpu_torch.sampling.dedup import (TripletSet, _compact, scatter_rows,
                                            winners_to_splits)
 from mfcd_tpu_torch.sampling.strategies import propose_margin
+from mfcd_tpu_torch.utils import observability as obs
 
 
 class LabeledSplit(NamedTuple):
@@ -115,21 +116,39 @@ def sample_and_split(streams: dict, x: torch.Tensor, t_cap: int,
 
     ``keep_sample=True`` also returns the compacted unique sample
     (``SampledSplits.sample.triplets``; empty otherwise).
+
+    The stage's parts are detail spans (``prp.TABLES``, the strategy's
+    tables; ``prp.DRAW``, the rest), and the candidates it proposes add to
+    the call's ``prp.CANDIDATES`` counter from shapes the host holds: on
+    the prefix path the capacities' slots the permutation walks, on the
+    other paths the proposals of the overdraw plan or of margin's window.
     """
+    with obs.details():
+        return _sample_and_split(streams, x, t_cap, extra_cap, strategy,
+                                 popularity_method, alpha, budget,
+                                 extra_budget, keep_sample)
+
+
+def _sample_and_split(streams, x, t_cap, extra_cap, strategy,
+                      popularity_method, alpha, budget, extra_budget,
+                      keep_sample) -> SampledSplits:
     n, m = x.shape[-2:]
     r = x.shape[0]
     dev = x.device
     train_cap = int(TRAIN_RATIO * t_cap)
     val_cap = int(VAL_RATIO * t_cap)
     test_cap = t_cap - train_cap - val_cap
-    runs = lambda c: torch.as_tensor(c, dtype=torch.int32,
-                                     device=dev).expand(r)
+    runs = lambda c: (c.to(torch.int32).expand(r)
+                      if isinstance(c, torch.Tensor) else
+                      torch.full((r,), int(c), dtype=torch.int32, device=dev))
     empty = torch.zeros((r, 0, 3), dtype=torch.int32, device=dev)
 
     fast = prp.uniform_domain(strategy, x, t_cap, extra_cap,
                               key=streams["sampling"],
                               svd_num_triplets=t_cap, svd_budget=budget)
     if fast is not None:
+        obs.detail(prp.DRAW)
+        obs.count(prp.CANDIDATES, r * (t_cap + extra_cap))
         dom, decode, sample_key = fast
         count = runs(t_cap if budget is None else budget)
         extra_count = ((extra_cap if extra_budget is None else extra_budget)
@@ -158,10 +177,12 @@ def sample_and_split(streams: dict, x: torch.Tensor, t_cap: int,
         cands, win = propose_margin(
             streams["sampling"], x, md,
             t_cap if budget is None else budget, prp_distinct=True)
+        obs.count(prp.CANDIDATES, r * md)
     else:
         cands, cvalid = propose_candidates(
             streams["sampling"], x, t_cap, strategy=strategy,
             popularity_method=popularity_method, alpha=alpha, budget=budget)
+        obs.count(prp.CANDIDATES, r * cands.shape[1])
         win = first_occurrence_winners(cands, cvalid, nm_shape=(n, m))
     splits, count = winners_to_splits(
         cands, win, t_cap, train_cap, val_cap, test_cap,
@@ -177,6 +198,7 @@ def sample_and_split(streams: dict, x: torch.Tensor, t_cap: int,
                 streams["sampling"], x, extra_draw,
                 extra_cap if extra_budget is None else extra_budget,
                 prp_distinct=True, slot_offset=md)
+            obs.count(prp.CANDIDATES, r * extra_draw)
             extra = _compact(ec, ea, extra_cap, budget=extra_budget)
         else:
             # Exclude the kept winners in place: the first ``budget``
@@ -184,6 +206,9 @@ def sample_and_split(streams: dict, x: torch.Tensor, t_cap: int,
             b = t_cap if budget is None else torch.as_tensor(
                 budget, device=dev).reshape(-1, 1)
             kept = win & (torch.cumsum(win, dim=1) - 1 < b)
+            obs.count(prp.CANDIDATES, r * plan_overdraw(
+                strategy, extra_cap, n, m,
+                popularity_method=popularity_method, alpha=alpha))
             extra = sample_triplets(
                 streams["extra_sampling"], x, extra_cap, strategy=strategy,
                 popularity_method=popularity_method, alpha=alpha,

@@ -26,8 +26,9 @@ class MFParams(NamedTuple):
 def init_params(key: torch.Tensor, n: int, m: int, d: int) -> MFParams:
     """N(0, 1)/sqrt(d) init (reference ``structure.py:770-771``)."""
     ku, kv = prng.split(key).unbind(-2)
-    inv_sqrt_d = 1.0 / torch.sqrt(
-        torch.tensor(d, dtype=torch.float32, device=key.device))
+    # float32 1 / sqrt(d), worked out on the host: no copy to the card
+    inv_sqrt_d = float(1.0 / torch.sqrt(torch.tensor(d,
+                                                     dtype=torch.float32)))
     return MFParams(U=prng.normal(ku, (n, d)) * inv_sqrt_d,
                     V=prng.normal(kv, (m, d)) * inv_sqrt_d)
 

@@ -31,8 +31,17 @@ from mfcd_tpu_torch.core.config import TRAIN_RATIO, VAL_RATIO
 from mfcd_tpu_torch.ops.shuffle import (exact_prefix_permutation,
                                         exact_prefix_permutation_inverse)
 from mfcd_tpu_torch.sampling.dedup import SplitArrays
+from mfcd_tpu_torch.utils import observability as obs
 
 PROXIMITY_K = 100  # reference default (generation_data.py:29)
+
+# The sample stage's detail spans (``observability.detail``): a strategy's
+# tables for the run's X, and the draw (proposals, the PRP map or the
+# first-occurrence winners, the splits, the top-up); and its counter of
+# candidates proposed.
+TABLES = "mfcd.sample.tables"
+DRAW = "mfcd.sample.draw"
+CANDIDATES = "sample.candidates"
 
 
 def prp_domain_size(n: int, m: int) -> int:
@@ -227,11 +236,13 @@ def uniform_domain(strategy: str, x: torch.Tensor, *blocks: int,
                 lambda idx: decode_random(idx, n, m), key)
     if strategy == "proximity" and proximity_prp_supported(n, m, *blocks):
         kk = min(PROXIMITY_K, m)
+        obs.detail(TABLES)
         top_idx, bot_idx = proximity_tables(x)
         return (n * kk * kk,
                 lambda idx: decode_proximity(idx, kk, top_idx, bot_idx),
                 key)
     if strategy == "top_k" and topk_prp_supported(n, m, *blocks):
+        obs.detail(TABLES)
         top_idx = topk_table(x)
         kk = top_idx.shape[-1]
         return (n * kk * (kk - 1),
@@ -241,6 +252,7 @@ def uniform_domain(strategy: str, x: torch.Tensor, *blocks: int,
         from mfcd_tpu_torch.sampling.strategies import svd_tables
 
         k_tbl, key = prng.split(key).unbind(-2)
+        obs.detail(TABLES)
         tu, ti = svd_tables(k_tbl, x, svd_num_triplets, budget=svd_budget)
         nu, mt = tu.shape[-1], ti.shape[-1]
         return (nu * mt * (mt - 1),
@@ -272,8 +284,10 @@ def prp_splits(
     function does (``prp.py:366-367``).
     """
     dev = sample_key.device
-    count = torch.as_tensor(count, dtype=torch.int32, device=dev)
-    extra_count = torch.as_tensor(extra_count, dtype=torch.int32, device=dev)
+    # an int count is filled in on the device, not copied to it
+    i32 = lambda v: (v.to(torch.int32) if isinstance(v, torch.Tensor) else
+                     torch.full((), int(v), dtype=torch.int32, device=dev))
+    count, extra_count = i32(count), i32(extra_count)
     count_f = count.to(torch.float32)
     train_sz = torch.floor(TRAIN_RATIO * count_f).to(torch.int32)
     val_sz = torch.floor(VAL_RATIO * count_f).to(torch.int32)

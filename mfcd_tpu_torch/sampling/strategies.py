@@ -29,10 +29,12 @@ from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.core.prng import M32, mul32
 from mfcd_tpu_torch.genx.clusters import kmeans
 from mfcd_tpu_torch.ops.linalg import randomized_svd
-from mfcd_tpu_torch.sampling.prp import (_take, _take_rows, top_k_indices,
-                                         decode_random, prp_domain_size,
-                                         prp_indices, proximity_tables,
-                                         svd_dims, topk_table)
+from mfcd_tpu_torch.sampling.prp import (DRAW, TABLES, _take, _take_rows,
+                                         top_k_indices, decode_random,
+                                         prp_domain_size, prp_indices,
+                                         proximity_tables, svd_dims,
+                                         topk_table)
+from mfcd_tpu_torch.utils import observability as obs
 
 _I32_MAX = 2**31 - 1
 
@@ -108,6 +110,7 @@ def _distinct_pos(key, m_draw: int, k: int) -> Tuple[torch.Tensor,
 
 def propose_random(key, x, m_draw):
     n, m = x.shape[-2:]
+    obs.detail(DRAW)
     ku, kij = _keys(key, 2)
     u = prng.randint(ku, (m_draw,), 0, n)
     ij = prng.randint(kij, (m_draw, 2), 0, m)
@@ -121,7 +124,9 @@ def propose_proximity(key, x, m_draw, k: int = 100):
     kk = min(k, m)
     # Unmasked tables + the i != j mask: the reference's rejection
     # semantics (the PRP path uses disjoint=True instead).
+    obs.detail(TABLES)
     top_idx, bot_idx = proximity_tables(x, k=kk, disjoint=False)
+    obs.detail(DRAW)
     ku, ki, kj = _keys(key, 3)
     u = prng.randint(ku, (m_draw,), 0, n)
     i = _take_rows(top_idx, u, prng.randint(ki, (m_draw,), 0, kk))
@@ -152,7 +157,9 @@ def propose_margin(key, x, m_draw, num_triplets, prp_distinct: bool = False,
     domain from ``slot_offset`` on: pairwise distinct, so acceptance is the
     only selection, and a later block is disjoint from this one."""
     n, m = x.shape[-2:]
+    obs.detail(TABLES)
     margin = margin_window(x, num_triplets).unsqueeze(-1)
+    obs.detail(DRAW)
     if prp_distinct:
         slots = slot_offset + torch.arange(m_draw, dtype=torch.int64,
                                            device=x.device)
@@ -179,7 +186,9 @@ def _var_ddof1(x):
 
 def propose_variance(key, x, m_draw):
     n = x.shape[-2]
+    obs.detail(TABLES)
     probs, cdf = _exact_cdf(_var_ddof1(x))  # torch.var's unbiased form
+    obs.detail(DRAW)
     ku, kij = _keys(key, 2)
     u = prng.randint(ku, (m_draw,), 0, n)
     i, j = _categorical_pair_from_cdf(kij, cdf, probs, m_draw)
@@ -207,8 +216,10 @@ def popularity_probs(m: int, method: str = "zipf", alpha: float = 1.5,
 def propose_popularity(key, x, m_draw, method: str = "zipf",
                        alpha: float = 1.5):
     n, m = x.shape[-2:]
+    obs.detail(TABLES)
     probs, cdf = _exact_cdf(popularity_probs(m, method, alpha, x.device)
                             .expand(x.shape[0], m))
+    obs.detail(DRAW)
     ku, kij = _keys(key, 2)
     u = prng.randint(ku, (m_draw,), 0, n)
     i, j = _categorical_pair_from_cdf(kij, cdf, probs, m_draw)
@@ -229,7 +240,9 @@ def estimate_k(num_triplets: int) -> int:
 
 def propose_top_k(key, x, m_draw, k: int | None = None):
     n = x.shape[-2]
+    obs.detail(TABLES)
     top_idx = topk_table(x, k=k)
+    obs.detail(DRAW)
     kk = top_idx.shape[-1]
     ku, kp = _keys(key, 2)
     u = prng.randint(ku, (m_draw,), 0, n)
@@ -246,10 +259,12 @@ def propose_cluster(key, x, m_draw, n_clusters: int = 10):
     from two distinct uniformly chosen clusters."""
     n, m = x.shape[-2:]
     kc, ku, kcl, kii, kjj = _keys(key, 5)
+    obs.detail(TABLES)
     labels, _ = kmeans(kc, x.transpose(-1, -2), n_clusters)
     order = torch.argsort(labels, dim=-1, stable=True)
     counts = torch.nn.functional.one_hot(labels, n_clusters).sum(dim=1)
     offsets = torch.cumsum(counts, dim=-1) - counts
+    obs.detail(DRAW)
 
     u = prng.randint(ku, (m_draw,), 0, n)
     c1, c2 = _distinct_pos(kcl, m_draw, n_clusters)
@@ -305,9 +320,11 @@ def propose_svd(key, x, m_draw, num_triplets: int, top_fraction: float = 0.3,
                 budget=None):
     """Overdraw proposals from the :func:`svd_tables` top sets."""
     kp, key = _keys(key, 2)
+    obs.detail(TABLES)
     top_users, top_items = svd_tables(kp, x, num_triplets,
                                       top_fraction=top_fraction,
                                       budget=budget)
+    obs.detail(DRAW)
     ku, kp = _keys(key, 2)
     u = _take(top_users, prng.randint(ku, (m_draw,), 0,
                                       top_users.shape[-1]))
@@ -357,6 +374,7 @@ def propose_user_similarity(key, x, m_draw, num_triplets: int, exclude=None,
     r, n, m = x.shape
     dev = x.device
     nb, tk = user_similarity_dims(n, m, num_triplets)
+    obs.detail(TABLES)
     xn = x / torch.clamp(torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)),
                          min=1e-12)
     sims = xn @ xn.transpose(-1, -2) - 2.0 * torch.eye(n, device=dev)
@@ -372,6 +390,7 @@ def propose_user_similarity(key, x, m_draw, num_triplets: int, exclude=None,
     member = torch.zeros((r, n * m), dtype=torch.bool, device=dev).scatter_(
         1, (torch.arange(n, device=dev).view(1, n, 1) * m + topk_idx).reshape(
             r, -1), True)
+    obs.detail(DRAW)
 
     def block_candidates(kk_b, u_c):
         """Per-rank (i, j), ``[R, nb, blk]``, in top-set position space:

@@ -17,6 +17,12 @@ scaffolding (``structure.py:830-834, 1130-1145``).  Here:
   Nothing syncs to read the events: a call's are resolved at the next
   call's entry once they have completed, or by :func:`calls` (which then
   waits on the newest call's last event only).
+- :func:`details` and :func:`detail` time parts of a stage (the sampler's
+  ``mfcd.sample.tables`` and ``mfcd.sample.draw``) as *detail* spans:
+  sibling stretches with their own edges, host and card, that take
+  nothing from the stage's self time, so the stages still partition the
+  call.  :func:`count` adds to a named counter of the open call (the
+  sampler's ``sample.candidates``), from numbers the host holds.
 - While ``torch.profiler`` records, a span is also a ``record_function``
   range of the same name (the trace's stage markers), and ``mfcd.call``
   counts syncs: on the card it sets ``torch.cuda.set_sync_debug_mode
@@ -82,13 +88,25 @@ class _Span:
                     syncs=self.syncs)
 
 
+class _Detail:
+    """A detail span: host stamps and card events of its two edges."""
+
+    __slots__ = ("name", "start", "end", "ev0", "ev1")
+
+    def __init__(self, name, start, ev0):
+        self.name, self.start, self.ev0 = name, start, ev0
+        self.end, self.ev1 = start, ev0
+
+
 class _Call:
     """An open or unresolved call: its spans, and each thread's timelines
     (``[(event, innermost span after the edge)]`` from the edge that opened
-    the thread's first span to the one that closed it)."""
+    the thread's first span to the one that closed it); its detail spans,
+    the events of their edges, and its counters."""
 
     __slots__ = ("entry", "id", "card", "profiled", "runs", "spans",
-                 "timelines", "record")
+                 "timelines", "record", "details", "detail_events",
+                 "counters")
 
     def __init__(self, entry, call_id, card, profiled):
         self.entry, self.id, self.card = entry, call_id, card
@@ -96,6 +114,9 @@ class _Call:
         self.spans: List[_Span] = []
         self.timelines: List[list] = []
         self.record: Optional[dict] = None
+        self.details: List[_Detail] = []
+        self.detail_events: list = []
+        self.counters: Dict[str, int] = {}
 
 
 class _Thread:
@@ -103,7 +124,7 @@ class _Thread:
     costs several times as much, and an edge reads a few)."""
 
     __slots__ = ("ident", "call", "stack", "timeline", "stream", "last",
-                 "root_parent")
+                 "root_parent", "detail", "detail_depth")
 
     def __init__(self):
         self.ident = threading.get_ident()
@@ -113,6 +134,8 @@ class _Thread:
         self.stream = None                  # the stream its events go on
         self.last = 0                       # host ns of the thread's last edge
         self.root_parent: Optional[int] = None  # parent of its outermost span
+        self.detail: Optional[_Detail] = None   # the open detail span
+        self.detail_depth = 0               # open ``details`` blocks
 
 
 class Recorder:
@@ -204,6 +227,52 @@ class Recorder:
         if call is not None:
             call.runs += int(runs)
 
+    def count(self, name: str, n: int) -> None:
+        call = self._thread().call
+        if call is not None:
+            call.counters[name] = call.counters.get(name, 0) + int(n)
+
+    # -- detail spans -------------------------------------------------------
+    def detail(self, name: Optional[str]) -> None:
+        """Close the thread's open detail span and open ``name`` (None:
+        none) at one edge.  Acts only inside a :meth:`details` block that
+        a span of an open call encloses; the stack, and so every span's
+        self time, is left as it was."""
+        th = self._thread()
+        call, cur = th.call, th.detail
+        if call is None or not th.detail_depth or not th.stack:
+            return
+        if (cur.name if cur is not None else None) == name:
+            return
+        t, ev = time.time_ns(), None
+        if call.card:
+            try:
+                ev = self._pool.pop()
+            except IndexError:
+                ev = self._event()
+            ev.record(th.stream)
+            call.detail_events.append(ev)
+        if cur is not None:
+            cur.end, cur.ev1 = t, ev
+        th.detail = None
+        if name is not None:
+            th.detail = _Detail(name, t, ev)
+            call.details.append(th.detail)
+
+    @contextlib.contextmanager
+    def details(self) -> Iterator[None]:
+        """A block in which :meth:`detail` switches detail spans; the
+        outermost closes the open one at its exit."""
+        th = self._thread()
+        th.detail_depth += 1
+        try:
+            yield
+        finally:
+            if th.detail_depth == 1:
+                self.detail(None)
+                th.detail = None
+            th.detail_depth -= 1
+
     def carry(self, fn: Callable) -> Callable:
         """``fn``, to run on another thread as part of the call open on
         this one: its spans join the call, on that thread's own stack, the
@@ -274,11 +343,18 @@ class Recorder:
             st["entries"] += 1
             st["host_ns"] += sp.host_ns
             st["syncs"] += sp.syncs
+        details: Dict[str, dict] = {}
+        for d in c.details:
+            st = details.setdefault(d.name, dict(entries=0, host_ns=0,
+                                                 card_ns=None))
+            st["entries"] += 1
+            st["host_ns"] += d.end - d.start
         top = c.spans[0]
         c.record = dict(entry=c.entry, id=c.id, runs=c.runs,
                         profiled=c.profiled, card=c.card,
                         host_ns=top.end - top.start, card_ns=None,
-                        stages=stages)
+                        stages=stages, details=details,
+                        counters=dict(c.counters))
         self._log.append(c.record)
         self._raw.append(c)
         if c.card:
@@ -302,6 +378,15 @@ class Recorder:
             sp.card_ns = int(round(sp.card_ns))
             stages[sp.name]["card_ns"] += sp.card_ns
         c.record["card_ns"] = sum(st["card_ns"] for st in stages.values())
+        details = c.record["details"]
+        for st in details.values():
+            st["card_ns"] = 0.0
+        for d in c.details:
+            details[d.name]["card_ns"] += d.ev0.elapsed_time(d.ev1) * 1e6
+        for st in details.values():
+            st["card_ns"] = int(round(st["card_ns"]))
+        self._pool.extend(c.detail_events)
+        c.details, c.detail_events = [], []
 
     @staticmethod
     def _last_event(c: _Call):
@@ -410,6 +495,26 @@ def count_runs(runs: int) -> None:
     _RECORDER.count_runs(runs)
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` (a number the host holds) to the open call's counter
+    ``name``."""
+    _RECORDER.count(name, n)
+
+
+def details():
+    """``with details():`` — a block in which :func:`detail` times parts
+    of the enclosing stage; the open detail span closes with the block."""
+    return _RECORDER.details()
+
+
+def detail(name: Optional[str]) -> None:
+    """Close the open detail span of this thread's :func:`details` block
+    and open ``name`` (None: none) at one edge: a part of the innermost
+    stage, timed on the host and the card, whose time stays in the
+    stage's self time.  Nothing happens outside such a block."""
+    _RECORDER.detail(name)
+
+
 def carry(fn: Callable) -> Callable:
     """``fn``, to run on another thread as part of the open call."""
     return _RECORDER.carry(fn)
@@ -420,7 +525,10 @@ def calls() -> List[dict]:
     ``id``, ``runs``, ``profiled``, ``card``, ``host_ns`` (the call's host
     interval), ``card_ns`` (its card timeline, None off the card),
     ``stages`` (per span name: ``entries``, ``host_ns`` and ``card_ns``
-    self, ``syncs``) and, for the newest :data:`RAW_CALLS`, ``spans``
+    self, ``syncs``), ``details`` (per detail span name: ``entries``,
+    ``host_ns`` and ``card_ns`` between its edges, inside a stage's self
+    time and outside ``card_ns``), ``counters`` (per name, its sum) and,
+    for the newest :data:`RAW_CALLS`, ``spans``
     (each with its ``call``, ``id``, ``parent``, ``thread``, host
     ``start_ns`` / ``end_ns`` on ``time.time_ns()``'s clock)."""
     return _RECORDER.calls()

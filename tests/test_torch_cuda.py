@@ -1399,3 +1399,39 @@ def test_loss_pass_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="batch_losses"):
         LP.batch_losses(params, split, 0)
     assert LP.LOSS_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,p", [
+    ("random", 0.0413), ("random", 0.065536), ("proximity", 0.0413),
+    ("margin", 0.0413), ("variance", 0.0413), ("popularity", 0.2),
+    ("top_k", 0.0413)])
+def test_the_sample_stage_has_no_host_sync(strategy, p):
+    # Cell 18's shapes (n = m = 1000, reps 3; p = 0.065536 the exact
+    # capacity 2^15) under sync debug mode "error": no read-back and no
+    # copy from the host (a key, a count, a uniform's bounds) in the
+    # sampler.  svd's tables read back torch.linalg.svd's status.
+    from mfcd_tpu_torch.core import prng, rng
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.data.btl import sample_and_split
+    from mfcd_tpu_torch.genx import generate_x
+    from mfcd_tpu_torch.sweep.engine import compile_caps
+
+    dev = _card()
+    cfg = RunConfig(n=1000, m=1000, d=2, p=p, reps=3, strategy=strategy)
+    t_cap, e_cap = compile_caps(cfg)
+    t = cfg.shapes().num_triplets
+    keys = rng.rep_keys(rng.config_key(prng.key(11, device=dev), 0), 3)
+    st = rng.rep_streams(keys)
+    x = generate_x(st["x_gen"], 1000, 1000, 2, "base")
+    budget = (None if t == t_cap else
+              torch.full((3,), t, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sample_and_split(st, x, t_cap, e_cap, strategy, budget=budget,
+                               extra_budget=None if budget is None else
+                               torch.zeros_like(budget))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.train.shape[1] == int(0.8 * t_cap)

@@ -314,3 +314,162 @@ def test_trace_clears_the_log_and_prints_the_stage_table(
         assert any(line.startswith(name) for line in out.splitlines())
     assert [r["entry"] for r in obs.calls()] == [
         "parameter_scan_ground_truth"]
+
+
+# -- detail spans and counters ----------------------------------------------
+
+from mfcd_tpu_torch.core.config import RunConfig                # noqa: E402
+from mfcd_tpu_torch.sampling import plan_overdraw, prp          # noqa: E402
+from mfcd_tpu_torch.sweep.engine import compile_caps            # noqa: E402
+
+STRATEGY_SCAN = dict(device="cpu", n=24, m=28, d=2, p=[0.2, 0.4], s=5.0,
+                     num_epochs=2, reps=2)
+DETAILS = {prp.TABLES, prp.DRAW}
+
+
+@pytest.mark.parametrize("strategy,details", [
+    ("random", {prp.DRAW}), ("proximity", DETAILS), ("margin", DETAILS),
+    ("variance", DETAILS), ("popularity", DETAILS), ("top_k", DETAILS),
+    ("svd", DETAILS)])
+def test_a_strategies_call_records_the_samplers_detail_spans(
+        recorder, strategy, details):
+    mfcd_tpu_torch.parameter_scan(strategy=strategy, **STRATEGY_SCAN)
+    (rec,) = obs.calls()
+    # Detail spans sit beside the stages, never among them: the stages
+    # still partition the call.
+    assert set(rec["stages"]) == STAGES
+    assert set(rec["details"]) == details
+    for st in rec["details"].values():
+        # tables and draw again for the test top-up
+        assert st["entries"] >= 2 and st["host_ns"] > 0
+        assert st["card_ns"] is None
+    assert sum(st["host_ns"] for st in rec["details"].values()) <= \
+        rec["stages"]["mfcd.sample"]["host_ns"]
+    assert sum(st["host_ns"] for st in rec["stages"].values()) == \
+        rec["host_ns"]
+
+
+def _cfg(strategy, p):
+    return RunConfig(n=24, m=28, d=2, p=p, reps=2, strategy=strategy)
+
+
+def test_the_candidates_counter_counts_the_shapes_proposed(recorder):
+    """On the prefix path the sampler walks its capacities' slots; on the
+    overdraw path it proposes its plan for the sample and for the top-up."""
+    for strategy in ("random", "variance"):
+        mfcd_tpu_torch.parameter_scan(strategy=strategy, **STRATEGY_SCAN)
+    rand, var = obs.calls()
+    assert rand["counters"] == {prp.CANDIDATES: sum(
+        2 * sum(compile_caps(_cfg("random", p))) for p in STRATEGY_SCAN["p"])}
+    want = 0
+    for p in STRATEGY_SCAN["p"]:
+        cfg = _cfg("variance", p)
+        assert prp.fast_path_kind("variance", 24, 28,
+                                  *compile_caps(cfg)) is None
+        want += 2 * sum(plan_overdraw("variance", cap, 24, 28)
+                        for cap in compile_caps(cfg))
+    assert var["counters"] == {prp.CANDIDATES: want}
+    # Outside a call nothing is counted, and a counter needs no span.
+    obs.count(prp.CANDIDATES, 5)
+    rec = obs.Recorder()
+    with rec.call("scan", "cpu"):
+        rec.count("x", 2)
+        rec.count("x", 3)
+    assert rec.calls()[0]["counters"] == {"x": 5}
+
+
+def _stage_with_details(rec, clock, with_details: bool):
+    def work(ms):
+        clock.now += ms
+
+    with rec.call("scan", "cuda"):
+        with obs.stages(rec) as stage:
+            stage("mfcd.generate")
+            work(1)
+            stage("mfcd.sample")
+            with rec.details():
+                work(2)
+                if with_details:
+                    rec.detail(prp.TABLES)
+                work(4)
+                if with_details:
+                    rec.detail(prp.DRAW)
+                work(8)
+                if with_details:
+                    rec.detail(prp.TABLES)   # the top-up's tables
+                work(16)
+                if with_details:
+                    rec.detail(prp.DRAW)
+                work(32)
+            work(64)
+            stage("mfcd.label")
+            work(128)
+
+
+def test_detail_spans_leave_the_stages_self_times_as_they_were():
+    made, records = [], []
+    for with_details in (False, True):
+        clock = Clock()
+        rec = obs.Recorder(event=clock.event, stream=lambda: None)
+        _stage_with_details(rec, clock, with_details)
+        (r,) = rec.calls()
+        made.append(clock.made)
+        records.append(r)
+    plain, detailed = records
+    for r in records:
+        card = {n: st["card_ns"] for n, st in r["stages"].items()}
+        assert card == {"mfcd.call": 0, "mfcd.generate": 1e6,
+                        "mfcd.sample": 126e6, "mfcd.label": 128e6}
+        assert r["card_ns"] == sum(card.values()) == 255e6
+    assert plain["details"] == {}
+    assert {n: (st["entries"], st["card_ns"])
+            for n, st in detailed["details"].items()} == {
+        prp.TABLES: (2, 20e6), prp.DRAW: (2, 40e6)}
+    # four switches and the close at the block's end, one event each
+    assert made[1] == made[0] + 5
+
+
+def test_detail_edges_add_no_wait_and_reuse_events(monkeypatch):
+    """A detail edge records an event and reads nothing back: no wait, no
+    query, no elapsed time until the call resolves, when its events return
+    to the pool."""
+    clock = Clock()
+    rec = obs.Recorder(event=clock.event, stream=lambda: None)
+    reads = []
+    for name in ("synchronize", "query", "elapsed_time"):
+        orig = getattr(FakeEvent, name)
+
+        def counted(self, *a, _orig=orig, _name=name):
+            reads.append(_name)
+            return _orig(self, *a)
+        monkeypatch.setattr(FakeEvent, name, counted)
+    with rec.call("scan", "cuda"):
+        with obs.span("mfcd.sample", rec):
+            with rec.details():
+                for name in (prp.TABLES, prp.DRAW) * 3:
+                    rec.detail(name)
+                    clock.now += 1
+    assert reads == []
+    made = clock.made
+    (r,) = rec.calls()
+    assert reads.count("synchronize") == 1        # the log's one wait
+    assert r["details"][prp.DRAW]["card_ns"] == 3e6
+    _stage_with_details(rec, clock, True)
+    assert clock.made == made                     # every event reused
+
+
+def test_a_detail_outside_a_block_or_a_call_is_nothing(recorder):
+    clock = Clock()
+    rec = obs.Recorder(event=clock.event, stream=lambda: None)
+    rec.detail(prp.DRAW)                      # no call
+    with rec.call("scan", "cuda"):
+        with obs.span("mfcd.sample", rec):
+            rec.detail(prp.DRAW)              # no details block
+            with rec.details():
+                with rec.details():           # an inner block keeps it open
+                    rec.detail(prp.DRAW)
+                clock.now += 3
+            clock.now += 5
+    (r,) = rec.calls()
+    assert r["details"][prp.DRAW]["card_ns"] == 3e6
+    assert r["stages"]["mfcd.sample"]["card_ns"] == 8e6

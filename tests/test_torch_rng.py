@@ -341,3 +341,48 @@ def test_counter_and_hash_one_launch_packing_bit_equal(entry, monkeypatch):
     assert prng.THREEFRY_LAUNCHES == before + 1 and fake.calls == 1
     assert tuple(got.shape) == want.shape
     assert (got.numpy() == want).all()
+
+
+# -- sync-free constants (cell 18's sampler and every draw) -----------------
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (prng._NORMAL_LO, 1.0),
+                                   (prng._F32_TINY, 1.0), (-3.5, 2.25),
+                                   (0.1, 0.7)])
+def test_uniform_number_bounds_stay_on_the_host_with_the_same_bits(
+        lo, hi, monkeypatch):
+    # every float32 uniform draws: all 2^23 mantissas, against jax's form
+    # with the bounds as float32 tensors (which copied them to the card)
+    words = torch.arange(2 ** 23, dtype=torch.int64) << 9
+    got = prng._uniform_from_bits(words, lo, hi)
+    floats = (((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+              - 1.0)
+    lo_t, hi_t = torch.tensor(lo), torch.tensor(hi)
+    want = torch.maximum(lo_t, floats * (hi_t - lo_t) + lo_t)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    made = []
+    for name in ("as_tensor", "tensor"):
+        orig = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _o=orig, **k: (
+            made.append(a), _o(*a, **k))[1])
+    prng._uniform_from_bits(words[:8], lo, hi)
+    assert made == []
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 4321, 2 ** 32 + 5,
+                                  2 ** 40 - 1])
+def test_a_key_is_made_on_its_device_with_jaxs_words(seed):
+    k = prng.key(seed)
+    assert k.dtype == torch.int64 and k.tolist() == [0, seed & prng.M32]
+    assert torch.equal(k, torch.tensor([0, seed & prng.M32]))
+
+
+def test_init_params_scale_is_the_float32_reciprocal_root():
+    from mfcd_tpu_torch.models.mf import init_params
+
+    key = prng.split(prng.key(3), 4)
+    for d in (1, 2, 3, 8):
+        got = init_params(key, 6, 7, d)
+        inv = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+        ku, kv = prng.split(key).unbind(-2)
+        assert torch.equal(got.U, prng.normal(ku, (6, d)) * inv)
+        assert torch.equal(got.V, prng.normal(kv, (7, d)) * inv)
