@@ -190,7 +190,11 @@ Phases, each of which raises on failure (nothing is caught and continued):
    (queued behind a spin kernel, as in [14]) and host issue ms beside the
    plain version's and the bound (its bytes at the memory rate); and the
    launches of [4]'s call: two a pass, 30 validation passes and one test
-   pass.
+   pass; then the test pass, L1's counting variant, at the canonical, hard
+   K = 10 and K = 50 test splits (``scripts/ab_test_pass.py``): its count
+   and accuracy bit-equal to the plain block path's on the card, its loss
+   bit-equal to the loss-only pass's, two launches, and its device, host
+   and wall ms beside the eager path's wall ms.
 
 Prints the ``kernels`` JSON line and the nvidia-smi line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -3099,7 +3103,20 @@ def loss_pass_phase(smi, main_launches):
             f"{host_ms:.6f}), plain {plain_ms:.4f} ms, bound {bound:.6f} ms "
             f"({by}, {nbytes} bytes); {smi}")
     log(f"[15] L1 launches of [4]'s call: {main_launches['l1']}")
-    return entries
+    from mfcd_tpu_torch.scripts import ab_test_pass as tp
+    tests = []
+    for shape in tp.TEST_SHAPES:
+        try:
+            e = tp.measure(*shape, torch.device("cuda"))
+        except AssertionError as exc:
+            fail(f"[15] test pass: {exc}")
+        tests.append(e)
+        log(f"[15] test pass {e['label']} (R={e['runs']}, {e['rows']} rows, "
+            f"{e['valid']} valid): {', '.join(e['checks'])} bit-equal; "
+            f"device {e['test_pass_ms']:.6f} ms a call (host issue "
+            f"{e['test_pass_host_ms']:.4f}), wall {e['test_pass_wall_ms']:.4f}"
+            f" against the eager path's {e['eager_wall_ms']:.4f}; {smi}")
+    return entries, tests
 
 
 def main() -> int:
@@ -3276,7 +3293,7 @@ def main() -> int:
 
     # [15] The validation pass's kernel against its plain version at the
     # cells' validation splits.
-    l1_entries = loss_pass_phase(smi, main_launches)
+    l1_entries, test_pass_entries = loss_pass_phase(smi, main_launches)
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
@@ -3370,6 +3387,7 @@ def main() -> int:
                                          "bound_ms", "bound_by")},
         "library_ms": None,
         "cases": l1_entries,
+        "test_pass": test_pass_entries,
     }] + split_entries + alt_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

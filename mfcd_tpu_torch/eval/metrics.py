@@ -25,35 +25,28 @@ import torch
 
 from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.data.btl import LabeledSplit
-from mfcd_tpu_torch.models.mf import MFParams, forward_logits
+from mfcd_tpu_torch.models.mf import MFParams
 from mfcd_tpu_torch.ops.linalg import top_singular_values
-from mfcd_tpu_torch.ops.loss_pass import (_pad_to_batches, batch_losses,
-                                          map_batch_blocks)
+from mfcd_tpu_torch.ops.loss_pass import _pad_to_batches, losses_and_hits
 
 _EPS = 1e-8
 
 
+def accuracy(correct: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """``correct / total`` in float32, 0 where ``total`` is 0: a run's
+    accuracy from its counts of correct and of valid rows."""
+    return torch.where(total > 0,
+                       correct.to(torch.float32) / torch.clamp(total, min=1),
+                       0.0)
+
+
 def evaluate_split(params: MFParams, split: LabeledSplit,
                    batch_size: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Test BCE (mean of per-batch means) + accuracy at threshold 0.5."""
-    _, loss = batch_losses(params, split, batch_size)
-    u, i, j, z, valid = _pad_to_batches(split, batch_size)
-
-    def block_stats(args):
-        bu, bi, bj, bz, bv = args
-        pred = (torch.sigmoid(forward_logits(params, bu, bi, bj))
-                > 0.5).to(torch.float32)
-        hit = torch.where(bv, (pred == bz).to(torch.float32),
-                          torch.zeros_like(pred))
-        return torch.sum(hit, dim=-1), torch.sum(bv, dim=-1)
-
-    correct_b, cnt_b = map_batch_blocks(
-        block_stats, (u, i, j, z, valid), u.shape[-2])
-    correct = torch.sum(correct_b, dim=-1)
-    total = torch.sum(cnt_b, dim=-1)
-    acc = torch.where(total > 0, correct / torch.clamp(total, min=1),
-                      torch.zeros_like(correct))
-    return loss, acc
+    """Test BCE (mean of per-batch means) + accuracy at threshold 0.5: on
+    a card one pass of L1 (``ops/loss_pass.py::losses_and_hits``), on the
+    CPU its plain block loop."""
+    _, loss, correct = losses_and_hits(params, split, batch_size)
+    return loss, accuracy(correct, torch.sum(split.valid, dim=-1))
 
 
 def ground_truth_metrics(x: torch.Tensor, split: LabeledSplit,

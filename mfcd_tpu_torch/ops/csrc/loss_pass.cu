@@ -33,8 +33,18 @@
 //   give (every loss is >= +0 and every sum starts at +0): the second
 //   launch, one block a run, counts the non-empty batches by it, rewrites
 //   it as +0 and divides the sum of the means, taken in a fixed order, by
-//   their count.  So a pass needs no scratch tensor and gives the same bits
-//   every time.
+//   their count.  So the loss needs no scratch tensor and gives the same
+//   bits every time.
+// - The count is a compile-time variant of both kernels, taken where the
+//   caller passes its outputs: each group adds its lanes' hits in the same
+//   butterfly, as integers, into a per-batch count, and the second launch
+//   sums a run's counts in a fixed order.  Integer sums are exact, so the
+//   count does not depend on the launch shape, and the loss-only variant
+//   the validation pass takes is the code it was.
+// - A row's decision is the plain version's, sigmoid(x) > 0.5 as PyTorch's
+//   CUDA sigmoid rounds it (1 / (1 + exp(-x)) in float32), on the logit the
+//   loss takes.  The sigmoid rounds to exactly 0.5 for x in a small
+//   interval above 0, so x > 0 is not the same test.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +75,7 @@ struct PassArgs {
   int lanes;        // a batch's group: batch_size rounded up to 2^k, <= 32
   long long chunk;  // batches a block, a multiple of the groups a block
   float* means;     // [runs, batches]
+  int* hits;        // [runs, batches]: the correct rows of each batch
 };
 
 template <typename T>
@@ -77,6 +88,12 @@ __device__ __forceinline__ float bce(float x, float z) {
   return (fmaxf(x, 0.0f) - x * z) + log1pf(expf(-fabsf(x)));
 }
 
+// The plain version's prediction: sigmoid(x) > 0.5, rounded as it rounds.
+__device__ __forceinline__ float predict(float x) {
+  return 1.0f / (1.0f + expf(-x)) > 0.5f ? 1.0f : 0.0f;
+}
+
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads) loss_batch_kernel(PassArgs a) {
   const int groups = kThreads / a.lanes;
   const int lane = threadIdx.x % a.lanes;
@@ -97,6 +114,7 @@ __global__ void __launch_bounds__(kThreads) loss_batch_kernel(PassArgs a) {
       if (b >= b1) end = row0;
       float sum = 0.0f;
       int count = 0;
+      int hit = 0;
       for (long long k = row0 + lane; k < end; k += a.lanes) {
         const int u = at<int>(a.f[0], r, k);
         const int i = at<int>(a.f[1], r, k);
@@ -114,33 +132,39 @@ __global__ void __launch_bounds__(kThreads) loss_batch_kernel(PassArgs a) {
           }
           sum += bce(x, z);
           ++count;
+          if constexpr (kCount) hit += predict(x) == z;
         }
       }
       for (int off = a.lanes / 2; off > 0; off /= 2) {
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
         count += __shfl_xor_sync(0xffffffffu, count, off);
+        if constexpr (kCount) hit += __shfl_xor_sync(0xffffffffu, hit, off);
       }
       if (lane == 0 && b < b1) {
         a.means[r * a.batches + b] =
             count > 0 ? sum / static_cast<float>(count)
                       : __uint_as_float(kEmpty);
+        if constexpr (kCount) a.hits[r * a.batches + b] = hit;
       }
     }
   }
 }
 
 // One block a run: the sum of its batch means and the count of non-empty
-// batches, each thread's share in batch order, then its warp's butterfly,
-// then the warps in order.
+// batches (and the sum of its batches' correct rows), each thread's share
+// in batch order, then its warp's butterfly, then the warps in order.
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
-    loss_epoch_kernel(float* means, int runs, long long batches,
-                      float* epoch) {
+    loss_epoch_kernel(float* means, const int* hits, int runs,
+                      long long batches, float* epoch, int* correct) {
   __shared__ float sums[kThreads / 32];
   __shared__ long long counts[kThreads / 32];
+  __shared__ long long rights[kThreads / 32];
   for (int r = blockIdx.x; r < runs; r += gridDim.x) {
     float* row = means + r * batches;
     float sum = 0.0f;
     long long count = 0;
+    long long right = 0;
     for (long long b = threadIdx.x; b < batches; b += kThreads) {
       const float m = row[b];
       if (__float_as_uint(m) == kEmpty) {
@@ -149,15 +173,18 @@ __global__ void __launch_bounds__(kThreads)
         sum += m;
         ++count;
       }
+      if constexpr (kCount) right += hits[r * batches + b];
     }
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) {
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
       count += __shfl_xor_sync(0xffffffffu, count, off);
+      if constexpr (kCount) right += __shfl_xor_sync(0xffffffffu, right, off);
     }
     if (threadIdx.x % 32 == 0) {
       sums[threadIdx.x / 32] = sum;
       counts[threadIdx.x / 32] = count;
+      if constexpr (kCount) rights[threadIdx.x / 32] = right;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -168,6 +195,11 @@ __global__ void __launch_bounds__(kThreads)
         nonempty += counts[w];
       }
       epoch[r] = total / static_cast<float>(nonempty > 0 ? nonempty : 1);
+      if constexpr (kCount) {
+        long long all = 0;
+        for (int w = 0; w < kThreads / 32; ++w) all += rights[w];
+        correct[r] = static_cast<int>(all);
+      }
     }
     __syncthreads();
   }
@@ -195,8 +227,9 @@ int resident(Kernel kernel) {
 
 // Enough blocks to fill the card once, each a whole number of rounds of
 // its groups; sets a.chunk.
+template <bool kCount>
 dim3 batch_grid(PassArgs& a) {
-  static const int per_sm = resident(loss_batch_kernel);
+  static const int per_sm = resident(loss_batch_kernel<kCount>);
   const long long groups = kThreads / a.lanes;
   const long long fill = static_cast<long long>(sm_count()) * per_sm;
   const long long most = (a.batches + groups - 1) / groups;
@@ -207,6 +240,22 @@ dim3 batch_grid(PassArgs& a) {
   chunks = (a.batches + a.chunk - 1) / a.chunk;
   return dim3(static_cast<unsigned>(chunks),
               static_cast<unsigned>(a.runs < 65535 ? a.runs : 65535));
+}
+
+// The pass's two launches, the variant that counts or the one that does
+// not.
+template <bool kCount>
+int launch(PassArgs& a, float* epoch, int* correct, cudaStream_t st) {
+  if (a.batches > 0) {
+    const dim3 grid = batch_grid<kCount>(a);
+    loss_batch_kernel<kCount><<<grid, kThreads, 0, st>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = a.runs < 65535 ? a.runs : 65535;
+  loss_epoch_kernel<kCount><<<blocks, kThreads, 0, st>>>(
+      a.means, a.hits, a.runs, a.batches, epoch, correct);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -222,8 +271,10 @@ const char* mfcd_cuda_error_string(int err) {
 // U [runs, n, d] and V [runs, m, d] float32 by their element strides; u, i,
 // j int32, z float32 and valid bool [runs, rows], each by its run and
 // column strides (a pointer may be null where rows is 0).  Valid rows'
-// indices must lie in the tables.  Two launches (one where rows is 0);
-// returns the launches' error.
+// indices must lie in the tables.  Where `correct` is not null, also each
+// run's count of correct valid rows into correct [runs] (int32), by way of
+// hits [runs, batches] (contiguous, int32), in the same launches.  Two
+// launches (one where rows is 0); returns the launches' error.
 int mfcd_loss_pass(const float* U, long long u_run, long long u_row,
                    long long u_col, const float* V, long long v_run,
                    long long v_row, long long v_col, const int* su,
@@ -233,8 +284,9 @@ int mfcd_loss_pass(const float* U, long long u_run, long long u_row,
                    long long z_run, long long z_col, const bool* valid,
                    long long valid_run, long long valid_col, int runs,
                    long long rows, int batch_size, int d, float* means,
-                   float* epoch, void* stream) {
-  if (runs < 0 || rows < 0 || batch_size < 1 || d < 1) {
+                   float* epoch, int* hits, int* correct, void* stream) {
+  if (runs < 0 || rows < 0 || batch_size < 1 || d < 1 ||
+      (correct != nullptr && hits == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (runs == 0) return static_cast<int>(cudaSuccess);
@@ -261,16 +313,9 @@ int mfcd_loss_pass(const float* U, long long u_run, long long u_row,
   a.lanes = 1;
   while (a.lanes < batch_size && a.lanes < 32) a.lanes *= 2;
   a.means = means;
-  if (a.batches > 0) {
-    const dim3 grid = batch_grid(a);
-    loss_batch_kernel<<<grid, kThreads, 0, st>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const unsigned blocks = runs < 65535 ? runs : 65535;
-  loss_epoch_kernel<<<blocks, kThreads, 0, st>>>(means, runs, a.batches,
-                                                 epoch);
-  return static_cast<int>(cudaGetLastError());
+  a.hits = hits;
+  return correct != nullptr ? launch<true>(a, epoch, correct, st)
+                            : launch<false>(a, epoch, nullptr, st);
 }
 
 }  // extern "C"

@@ -3,19 +3,23 @@
 Counterpart of ``mfcd_tpu/train/trainer.py::batch_losses``: pad a split's
 ``[..., N]`` rows to whole batches, take each batch's mean BCE over its
 valid rows (0 for a batch with none), then the mean of those means over
-the non-empty batches.  The trainers call it once an epoch on the
-validation split, ``eval/metrics.py::evaluate_split`` once on the test
-split.
+the non-empty batches.  The trainers call :func:`batch_losses` once an
+epoch on the validation split; ``eval/metrics.py::evaluate_split`` calls
+:func:`losses_and_hits` once on the test split, which also gives each
+run's count of correct valid rows (``sigmoid(logit) > 0.5`` equal to
+``z``), the test accuracy's numerator.
 
-On CUDA tensors :func:`batch_losses` launches ``ops/csrc/loss_pass.cu``:
-two launches a pass (one where the split has no rows), counted by
-``LOSS_LAUNCHES``, with no host sync; U and V are read in place through
-their strides, so the trainer's ``[R, d, n]`` tables pass as
-``transpose(1, 2)`` views.  On CPU tensors it runs
-:func:`batch_losses_reference`, the plain version, block by block; any
-other device raises.  The kernel sums a batch's rows and the epoch's
-batch means in another order than the plain version, so the two agree
-to float32 rounding, not bit for bit.
+On CUDA tensors both launch ``ops/csrc/loss_pass.cu``: two launches a
+pass (one where the split has no rows), counted by ``LOSS_LAUNCHES``,
+with no host sync; U and V are read in place through their strides, so
+the trainer's ``[R, d, n]`` tables pass as ``transpose(1, 2)`` views.
+:func:`losses_and_hits` takes the kernel's counting variant, whose loss
+is the loss-only variant's, bit for bit, and adds the rows it scored to
+the open call's ``test_pass.l1_rows`` counter.  On CPU tensors they run
+the plain versions, block by block; any other device raises.  The kernel
+sums a batch's rows and the epoch's batch means in another order than the
+plain version, so the two losses agree to float32 rounding, not bit for
+bit; the counts are integers, and equal where the logits are (d = 2).
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ import torch
 from mfcd_tpu_torch.models.mf import MFParams, forward_logits
 from mfcd_tpu_torch.ops import _build
 from mfcd_tpu_torch.ops.losses import bce_with_logits
+from mfcd_tpu_torch.utils import observability as obs
 
 LOSS_LAUNCHES = 0   # L1 launches, counted where they are made
+L1_ROWS = "test_pass.l1_rows"   # the counter of rows the counting pass scored
 
 
 def _pad_last(a: torch.Tensor, pad: int, fill=0) -> torch.Tensor:
@@ -85,11 +91,30 @@ def batch_losses_reference(params: MFParams, split, batch_size: int):
     return per_batch_mean, epoch_mean
 
 
+def losses_and_hits_reference(params: MFParams, split, batch_size: int):
+    """:func:`losses_and_hits` in plain PyTorch, on any device: the loss of
+    :func:`batch_losses_reference`, then each run's correct valid rows
+    counted block by block."""
+    per_batch_mean, epoch_mean = batch_losses_reference(params, split,
+                                                        batch_size)
+    u, i, j, z, valid = _pad_to_batches(split, batch_size)
+
+    def block_hits(args):
+        bu, bi, bj, bz, bv = args
+        pred = (torch.sigmoid(forward_logits(params, bu, bi, bj))
+                > 0.5).to(torch.float32)
+        return (torch.sum(bv & (pred == bz), dim=-1),)
+
+    (hits,) = map_batch_blocks(block_hits, (u, i, j, z, valid), u.shape[-2])
+    return (per_batch_mean, epoch_mean,
+            torch.sum(hits, dim=-1).to(torch.int32))
+
+
 _ARGS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
          + [ctypes.c_void_p] + [ctypes.c_longlong] * 3
          + ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 5
          + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-         + [ctypes.c_void_p] * 3)
+         + [ctypes.c_void_p] * 5)
 _FIELDS = (("u", torch.int32), ("i", torch.int32), ("j", torch.int32),
            ("z", torch.float32), ("valid", torch.bool))
 
@@ -107,9 +132,10 @@ def _library():
     return _build.bind("loss_pass.cu", "mfcd_loss_pass", _ARGS)
 
 
-def _launch(params: MFParams, split, batch_size: int):
+def _launch(params: MFParams, split, batch_size: int, count: bool = False):
     """L1 over ``[R, N]`` fields: (``per_batch_mean [R, B]``,
-    ``epoch_mean [R]``)."""
+    ``epoch_mean [R]``), and with ``count`` its counting variant's
+    ``correct [R]`` (int32) after them."""
     global LOSS_LAUNCHES
     U, V = params.U, params.V
     dev = U.device
@@ -139,19 +165,26 @@ def _launch(params: MFParams, split, batch_size: int):
     batches = -(-rows // batch_size)
     means = torch.empty((r, batches), dtype=torch.float32, device=dev)
     epoch = torch.empty((r,), dtype=torch.float32, device=dev)
+    out = (means, epoch)
+    hits_ptr = correct_ptr = None
+    if count:
+        hits = torch.empty((r, batches), dtype=torch.int32, device=dev)
+        correct = torch.empty((r,), dtype=torch.int32, device=dev)
+        out += (correct,)
+        hits_ptr, correct_ptr = hits.data_ptr(), correct.data_ptr()
     if r == 0:
-        return means, epoch
+        return out
     strided = []
     for t in fields:
         strided += [t.data_ptr(), t.stride(0), t.stride(1)]
     lib = _library()
     err = lib.mfcd_loss_pass(U.data_ptr(), *U.stride(), V.data_ptr(),
                              *V.stride(), *strided, r, rows, batch_size, d,
-                             means.data_ptr(), epoch.data_ptr(),
-                             _build.stream_ptr(dev))
+                             means.data_ptr(), epoch.data_ptr(), hits_ptr,
+                             correct_ptr, _build.stream_ptr(dev))
     _build.raise_on(lib, err, "batch_losses (L1)")
     LOSS_LAUNCHES += 2 if batches else 1
-    return means, epoch
+    return out
 
 
 def batch_losses(params: MFParams, split, batch_size: int):
@@ -165,3 +198,15 @@ def batch_losses(params: MFParams, split, batch_size: int):
     if _on(params.U.device):
         return _launch(params, split, batch_size)
     return batch_losses_reference(params, split, batch_size)
+
+
+def losses_and_hits(params: MFParams, split, batch_size: int):
+    """:func:`batch_losses` and each run's count of correct valid rows,
+    ``correct [...]`` (int32): rows where ``sigmoid(logit) > 0.5`` equals
+    ``z``.  On a card one pass of L1's counting variant, whose rows the
+    open call's ``test_pass.l1_rows`` counter gains."""
+    if _on(params.U.device):
+        out = _launch(params, split, batch_size, count=True)
+        obs.count(L1_ROWS, split.u.numel())
+        return out
+    return losses_and_hits_reference(params, split, batch_size)

@@ -1,14 +1,19 @@
-"""The validation pass's masked batch-mean BCE (``ops/loss_pass.py``) on
-the CPU.
+"""The validation pass's masked batch-mean BCE (``ops/loss_pass.py``) and
+the test pass that also counts correct rows, on the CPU and on a card.
 
-On CPU tensors ``batch_losses`` runs its plain version, the block loop the
-trainers and ``evaluate_split`` ran before the kernel L1 existed: its
-values are pinned bit for bit (hex floats) on small fixed inputs.  L1's
-argument packing runs through ``_FakeL1``, which stands in for the built
-library: it reads every tensor through the pointers and strides the
-wrapper passes, as the kernel does, computes the pass with the plain
-version and writes the two outputs.  The kernel itself is held to the
-plain version on the card (``tests/test_torch_cuda.py``).
+On CPU tensors ``batch_losses`` and ``losses_and_hits`` run their plain
+versions, the block loop the trainers and ``evaluate_split`` ran before
+the kernel L1 existed: its values are pinned bit for bit (hex floats) on
+small fixed inputs.  L1's argument packing runs through ``_FakeL1``, which
+stands in for the built library: it reads every tensor through the
+pointers and strides the wrapper passes, as the kernel does, computes the
+pass with the plain version and writes the outputs.  The loss-only kernel
+is held to the plain version on the card in ``tests/test_torch_cuda.py``;
+the counting variant here, under the ``cuda`` marker (these skip without
+a card, and import no jax, so ``python -m pytest --noconftest -p
+no:cacheprovider -m cuda tests/test_torch_loss_pass.py`` runs them there):
+its accuracy bit-equal to the plain block path's on the card at d = 2, its
+loss bit-equal to the loss-only variant's, two launches a pass.
 """
 
 import ctypes
@@ -20,11 +25,13 @@ import torch
 from numpy.lib.stride_tricks import as_strided
 
 from mfcd_tpu_torch.data.btl import LabeledSplit
-from mfcd_tpu_torch.eval.metrics import evaluate_split
+from mfcd_tpu_torch.eval.metrics import accuracy, evaluate_split
 from mfcd_tpu_torch.models.mf import MFParams
 from mfcd_tpu_torch.ops import loss_pass
+from mfcd_tpu_torch.scripts.ab_test_pass import eager_accuracy
 from mfcd_tpu_torch.train import trainer
 from mfcd_tpu_torch.train.kernel_trainer import train_runs_kernel
+from mfcd_tpu_torch.utils import observability as obs
 
 torch.set_num_threads(1)
 
@@ -158,8 +165,9 @@ class _FakeL1:
                        *rest):
         self.calls += 1
         fields, rest = rest[:15], rest[15:]
-        runs, rows, bs, d, means, epoch, stream = rest
+        runs, rows, bs, d, means, epoch, hits, correct, stream = rest
         assert stream == 0 and bs >= 1 and d >= 1
+        assert (hits is None) == (correct is None)
         params = MFParams(
             _read(U, np.float32, (runs, self.n, d), (u_run, u_row, u_col)),
             _read(V, np.float32, (runs, self.m, d), (v_run, v_row, v_col)))
@@ -167,11 +175,18 @@ class _FakeL1:
         split = LabeledSplit(*[
             _read(fields[3 * k], kinds[k], (runs, rows),
                   fields[3 * k + 1:3 * k + 3]) for k in range(5)], None)
-        want = loss_pass.batch_losses_reference(params, split, bs)
-        for ptr, t in zip((means, epoch), want):
+        if correct is None:
+            want = loss_pass.batch_losses_reference(params, split, bs)
+            ptrs = (means, epoch)
+        else:
+            want = loss_pass.losses_and_hits_reference(params, split, bs)
+            ptrs = (means, epoch, correct)
+        for ptr, t in zip(ptrs, want):
             if t.numel():
+                ctype = (ctypes.c_float if t.dtype == torch.float32
+                         else ctypes.c_int32)
                 dst = np.ctypeslib.as_array(
-                    (ctypes.c_float * t.numel()).from_address(ptr))
+                    (ctype * t.numel()).from_address(ptr))
                 dst[:] = t.reshape(-1).numpy()
         return 0
 
@@ -211,6 +226,29 @@ def test_kernel_packing_matches_the_plain_version(case, monkeypatch):
     assert loss_pass.LOSS_LAUNCHES == before + (1 if case == "no rows" else 2)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "transposed tables",
+                                  "strided fields", "batch size 1024",
+                                  "no rows"])
+def test_counting_packing_matches_the_plain_version(case, monkeypatch):
+    """The test pass's three outputs through the same packing: the loss
+    the loss-only pass gives, the count the plain block loop gives."""
+    p, sp, bs, n, m = _layout(case)
+    want = loss_pass.losses_and_hits_reference(p, sp, bs)
+    # the soft case's 3 of 50 and 1 of 13 (``_SOFT_ACC``)
+    assert want[2].tolist() == ([0, 0, 0] if case == "no rows" else [3, 1, 0])
+    fake = _FakeL1(monkeypatch, n, m)
+    before = loss_pass.LOSS_LAUNCHES
+    got = loss_pass.losses_and_hits(p, sp, bs)
+    assert fake.calls == 1
+    assert loss_pass.LOSS_LAUNCHES == before + (1 if case == "no rows" else 2)
+    assert len(got) == 3
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    for a, b in zip(got, loss_pass.batch_losses_reference(p, sp, bs)):
         assert torch.equal(a, b)
 
 
@@ -274,3 +312,202 @@ def test_other_devices_raise():
     meta = MFParams(p.U.to("meta"), p.V.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         loss_pass.batch_losses(meta, sp, 8)
+
+
+@pytest.mark.parametrize("case", ["soft", "blocks"])
+def test_cpu_evaluate_split_takes_the_plain_block_path(case):
+    p, sp = _soft_case() if case == "soft" else _blocks_case()
+    bs = 8 if case == "soft" else 1
+    before = loss_pass.LOSS_LAUNCHES
+    loss, acc = evaluate_split(p, sp, bs)
+    assert loss_pass.LOSS_LAUNCHES == before
+    assert torch.equal(loss, loss_pass.batch_losses_reference(p, sp, bs)[1])
+    assert acc.dtype == torch.float32
+    assert _hex(acc) == _hex(eager_accuracy(p, sp, bs))
+
+
+@pytest.mark.parametrize("total", [0, 1, 7, 500_000])
+def test_accuracy_is_the_plain_formula(total):
+    """The count-to-accuracy arithmetic gives the bits of the plain
+    formula (a float32 count over an int64 total) at every count."""
+    if total < 1000:
+        correct = np.arange(total + 1)
+    else:
+        g = np.random.default_rng(total)
+        correct = np.concatenate([[0, 1, 2, 3, total // 3, total // 2,
+                                   total - 1, total],
+                                  g.integers(0, total + 1, 2000)])
+    counts = torch.from_numpy(correct.astype(np.int32))
+    totals = torch.full(counts.shape, total, dtype=torch.int64)
+    got = accuracy(counts, totals)
+    hits = counts.to(torch.float32)
+    want = torch.where(totals > 0, hits / torch.clamp(totals, min=1),
+                       torch.zeros_like(hits))
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if total:
+        np.testing.assert_array_equal(
+            got.numpy(), correct.astype(np.float32) / np.float32(total))
+    else:
+        assert _hex(got) == ["0x0.0p+0"]
+
+
+@pytest.mark.parametrize("path", ["card", "cpu"])
+def test_l1_rows_counted_only_on_the_card_path(path, monkeypatch):
+    p, sp = _soft_case()
+    if path == "card":
+        fake = _FakeL1(monkeypatch, 7, 9)
+    obs.reset()
+    with obs.call("evaluate_split", "cpu"):
+        loss, acc = evaluate_split(p, sp, 8)
+        if path == "card":   # the pass that found nothing to score
+            loss_pass.losses_and_hits(
+                p, LabeledSplit(*[a[:, :0] for a in sp[:5]], sp.count), 8)
+    counters = obs.calls()[-1]["counters"]
+    if path == "card":
+        assert fake.calls == 2
+        assert counters == {loss_pass.L1_ROWS: 3 * 50}
+    else:
+        assert loss_pass.L1_ROWS not in counters
+    assert _hex(loss) == _SOFT_EPOCH and _hex(acc) == _SOFT_ACC
+
+
+# -- on a card ----------------------------------------------------------
+
+def _card() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+# The test pass at the cells' test splits, R = 5, batch 64: (rows a run,
+# valid counts, soft K).  "mixed" gives a run no valid row, others batches
+# past their count that hold only padding; every case also empties one
+# batch in the middle.  K = 10 and 50 take many of the plain version's
+# blocks of 64 batches and many of L1's chunks.
+CARD_CASES = {
+    "k1-hard": (10_240, [10_000] * 5, None),
+    "k1-mixed": (10_240, "mixed", None),
+    "k10-hard": (102_400, [100_000] * 5, None),
+    "k10-soft": (102_400, "mixed", 10),
+    "k50-hard": (500_032, [500_000] * 5, None),
+    "k50-soft": (500_032, [500_000, 499_990, 0, 123_457, 500_032], 50),
+}
+
+
+def _card_case(dev, rows, counts, soft, seed=43, n=1000, m=1000, d=2):
+    g = np.random.default_rng(seed)
+    if counts == "mixed":
+        counts = [rows, 0, rows // 3, 1, rows - 7]
+    sp = _split(g, 5, rows, n, m, counts, soft=soft)
+    valid = sp.valid.clone()
+    valid[:, 64 * 7:64 * 8] = False    # an empty batch among full ones
+    sp = sp._replace(valid=valid)
+    p = _params(g, 5, n, m, d)
+    return (MFParams(*[t.to(dev) for t in p]),
+            LabeledSplit(*[t.to(dev) for t in sp]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_card_test_pass_matches_the_plain_block_path(case):
+    dev = _card()
+    p, sp = _card_case(dev, *CARD_CASES[case])
+    want = loss_pass.losses_and_hits_reference(p, sp, 64)
+    loss_only = loss_pass.batch_losses(p, sp, 64)
+    before = loss_pass.LOSS_LAUNCHES
+    got = loss_pass.losses_and_hits(p, sp, 64)
+    torch.cuda.synchronize()
+    assert loss_pass.LOSS_LAUNCHES == before + 2
+    assert got[2].dtype == torch.int32 and torch.equal(got[2], want[2])
+    # the loss is the loss-only pass's, bit for bit
+    for a, b in zip(got[:2], loss_only):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    loss, acc = evaluate_split(p, sp, 64)
+    assert torch.equal(loss.view(torch.int32), loss_only[1].view(torch.int32))
+    plain = eager_accuracy(p, sp, 64)
+    assert torch.equal(acc.view(torch.int32), plain.view(torch.int32))
+    again = loss_pass.losses_and_hits(p, sp, 64)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _edge_logits():
+    """float32 logits at 0, a unit in the last place either side of it, and
+    across the interval above 0 where the sigmoid rounds to 0.5."""
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    xs = [0.0, tiny, np.float32(np.finfo(np.float32).tiny), 1e-3, 1.0]
+    xs += [k * 2.0 ** -28 for k in range(1, 129)]
+    for e in (-25, -24, -23, -22):
+        x = np.float32(2.0 ** e)
+        xs += [x, np.nextafter(x, np.float32(0)), np.nextafter(x, np.float32(1))]
+    xs = np.asarray(xs, np.float32)
+    return np.concatenate([xs, -xs])
+
+
+@pytest.mark.cuda
+def test_card_test_pass_decides_as_the_plain_path_at_the_edge():
+    """One row a run, logit x placed exactly (U[u] = (1, 0), V[i] = (x, 0),
+    V[j] = 0), z = 1 and z = 0: each run's count is the plain decision."""
+    dev = _card()
+    xs = _edge_logits()
+    r = 2 * len(xs)
+    x = torch.from_numpy(np.concatenate([xs, xs]))
+    U = torch.zeros((r, 1, 2))
+    U[:, 0, 0] = 1
+    V = torch.zeros((r, 2, 2))
+    V[:, 0, 0] = x
+    z = torch.cat([torch.ones(len(xs)), torch.zeros(len(xs))])[:, None]
+    zeros = torch.zeros((r, 1), dtype=torch.int32)
+    sp = LabeledSplit(zeros, zeros, zeros + 1, z,
+                      torch.ones((r, 1), dtype=torch.bool),
+                      torch.ones(r, dtype=torch.int32))
+    p = MFParams(U.to(dev), V.to(dev))
+    sp = LabeledSplit(*[t.to(dev) for t in sp])
+    above = torch.sigmoid(x.to(dev)) > 0.5
+    # the interval where the sigmoid rounds to 0.5 is in the data
+    assert bool(((torch.sigmoid(x.to(dev)) == 0.5) & (x.to(dev) > 0)).any())
+    assert bool((above & (x.to(dev) < 2.0 ** -22)).any())
+    want = loss_pass.losses_and_hits_reference(p, sp, 1)[2]
+    got = loss_pass.losses_and_hits(p, sp, 1)[2]
+    assert torch.equal(want, (above == (z[:, 0].to(dev) == 1)).to(torch.int32))
+    assert torch.equal(got, want), x[(got != want).cpu()].tolist()
+
+
+@pytest.mark.cuda
+def test_card_passes_launch_their_variants():
+    """The test pass: two launches of the counting variant, and with the
+    accuracy's arithmetic no block loop; the validation pass, the trainer's
+    included: the loss-only variant."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    dev = _card()
+    p, sp = _card_case(dev, *CARD_CASES["k50-hard"])
+    evaluate_split(p, sp, 64)
+    loss_pass.batch_losses(p, sp, 64)
+    torch.cuda.synchronize()
+
+    def kernels(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+    test = kernels(lambda: loss_pass.losses_and_hits(p, sp, 64))
+    assert len(test) == 2 and all("<true>" in k for k in test), test
+    val = kernels(lambda: loss_pass.batch_losses(p, sp, 64))
+    assert len(val) == 2 and all("<false>" in k for k in val), val
+    # L1's two, then the accuracy's arithmetic: a few elementwise launches
+    # over [R], where the block loop made ~37 for every 64 batches
+    every = kernels(lambda: evaluate_split(p, sp, 64))
+    assert [k for k in every if "loss_" in k] == test and len(every) <= 16, \
+        every
+    pt, train, val_split, keys, lr, wd = _train_case()
+    pt = MFParams(*[t.to(dev) for t in pt])
+    train, val_split = (LabeledSplit(*[t.to(dev) for t in s])
+                        for s in (train, val_split))
+    trained = kernels(lambda: train_runs_kernel(
+        pt, train, val_split, keys.to(dev), lr.to(dev), wd.to(dev),
+        batch_size=8, num_epochs=2))
+    l1 = [k for k in trained if "loss_" in k]
+    assert len(l1) == 4 and all("<false>" in k for k in l1), l1
