@@ -87,13 +87,12 @@ Phases, each of which raises on failure (nothing is caught and continued):
    planted comparisons: 20 K2 launches and 20 of its schedule, finite
    state, pairwise accuracy above 0.8, the wall, ms per phase and us per
    coordinate step;
-10. the chunk pipeline: ``parameter_scan_fast`` at n = m = 1000, d = 2,
-   p = 0.2, 30 epochs, 8 s values x 3 reps in chunks of 2 configurations
-   (4 chunks) with ``save_path``, ``MFCD_PIPELINE`` = 0, 1, 1, 0: the same
-   params in the same order, the same results (bit-equal, or within [5]'s
-   bound where two sequential passes differ on the card), 30 K1 launches
-   per chunk; s/run off and on, peak memory; and the TPU's decision
-   artifact leaves the pipeline off with the env var unset;
+10. chunks: ``parameter_scan_fast`` at n = m = 1000, d = 2, p = 0.2,
+   30 epochs, 8 s values x 3 reps in chunks of 2 configurations (4
+   chunks) with ``save_path``, twice: the params in grid order, 30 K1
+   launches per chunk, the schema and every key finite, and the two
+   pickles equal byte for byte (or within [5]'s bound where the card does
+   not repeat its bits); s/run and peak memory;
 11. the mesh (``mfcd_tpu_torch.parallel``), in ``torch.distributed`` jobs
    started by the port's launcher (kernels built here first, ranks
    spawned): (a) the (grid, data, tp)-sharded step at the canonical width
@@ -165,10 +164,8 @@ Phases, each of which raises on failure (nothing is caught and continued):
    of int64 slots, and ``prp_splits``' two calls: a shared key over
    int32 rows with int32 counts, and a key a row over int32 rows with an
    int count at k = 30) and threefry T1's ``bits``, ``fold_in`` and
-   ``split``, each bit-equal to its plain version on the card and to the
-   earlier design (one slot, one hash a thread) built from
-   ``mfcd_tpu_torch/scripts/ab_baseline/`` and timed in turns against it;
-   each with its device ms (CUDA events over calls queued behind a spin
+   ``split``, each bit-equal to its plain version on the card, each with
+   its device ms (CUDA events over calls queued behind a spin
    kernel, so the host's issue is not in them) and its host issue ms
    beside the plain version's and the bound (bytes at the memory rate,
    32-bit integer operations at PEAK_INT32_OPS, from the SM count and the
@@ -292,8 +289,8 @@ ALT_T = 100_000
 ALT_EPOCHS = 10
 ALT_SWEEPS = 3
 ALT_ACC_MIN = 0.8
-# [10] The chunk pipeline: 8 s values x 3 reps in chunks of 2 configs.
-PIPE_GRID = dict(n=1000, m=1000, d=2, p=0.2,
+# [10] Chunks: 8 s values x 3 reps in chunks of 2 configs.
+CHUNK_GRID = dict(n=1000, m=1000, d=2, p=0.2,
                  s=[0.5, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0], lr=1e-3,
                  weight_decay=5e-6, num_epochs=30, reps=3, max_bucket=2)
 # [11] The sharded step: 30 steps at the canonical width and lr / wd; the
@@ -347,6 +344,9 @@ ACC_MIN = 0.6
 # can issue as IMAD) and a slot's rotation (a compare and a select), or
 # S1's start of a slot's exact or inverse walk (the same two).
 MIX_OPS, HASH_OPS, SLOT_OPS = 14, 40, 2
+# Windows of 20 calls each that a kernel's device and host ms are the
+# median of (``ab_shuffle_kernels.queue_ms``).
+QUEUE_ROUNDS = 20
 # [15] L1 at the cells' validation splits: (label, runs, rows, valid rows a
 # run), n = m = 1000, d = 2, bs = 64; its bound per tensor, as K1's loss.
 L1_SHAPES = (("hard K=10 val", 5, 131_072, 100_000),
@@ -1961,82 +1961,57 @@ def altsvm_phase(dev, smi):
     } for phase in ("items", "users")]
 
 
-def pipeline_phase(smi):
-    """[10] ``parameter_scan_fast`` with the pipeline off and on, in turns
-    (0, 1, 1, 0), 4 chunks each: same params in order, same results, 30 K1
-    launches a chunk; s/run and peak memory per mode."""
-    from mfcd_tpu_torch.core import decisions
+def chunk_phase(smi):
+    """[10] ``parameter_scan_fast`` over ``CHUNK_GRID``'s 4 chunks, twice:
+    the params in grid order, 30 K1 launches a chunk, the entries checked,
+    and the two pickles equal byte for byte (else within [5]'s bound);
+    s/run and peak memory."""
     from mfcd_tpu_torch.sweep import batched
 
     t_all = time.perf_counter()
-    env = os.environ.pop("MFCD_PIPELINE", None)
-    decisions._cache.clear()
-    if batched.pipeline_enabled():
-        fail("[10] the pipeline is on with MFCD_PIPELINE unset (the TPU's "
-             "docs/decisions/pipeline.json must not set the card's default)")
-    configs = len(PIPE_GRID["s"])
-    runs = configs * PIPE_GRID["reps"]
-    chunks_expected = -(-configs // PIPE_GRID["max_bucket"])
+    configs = len(CHUNK_GRID["s"])
+    runs = configs * CHUNK_GRID["reps"]
+    chunks_expected = -(-configs // CHUNK_GRID["max_bucket"])
     passes = []
     with tempfile.TemporaryDirectory(prefix="mfcd_chip_smoke_") as tmp:
-        try:
-            for k, flag in enumerate(("0", "1", "1", "0")):
-                os.environ["MFCD_PIPELINE"] = flag
-                path = os.path.join(tmp, f"pipe{k}.pkl")
-                out, k1, chunks, wall, peak = _drive(
-                    batched.parameter_scan_fast, save_path=path,
-                    **PIPE_GRID)
-                with open(path, "rb") as f:
-                    raw = f.read()
-                passes.append(dict(on=flag == "1", wall=wall, k1=k1,
-                                   chunks=chunks, peak=peak, raw=raw,
-                                   entries=pickle.loads(raw)))
-                if out != [] or chunks != chunks_expected or \
-                        k1 != 30 * chunks:
-                    fail(f"[10] pass {k} (MFCD_PIPELINE={flag}): {chunks} "
-                         f"chunks, {k1} K1 launches, expected "
-                         f"{chunks_expected} and 30 a chunk")
-        finally:
-            os.environ.pop("MFCD_PIPELINE", None)
-            if env is not None:
-                os.environ["MFCD_PIPELINE"] = env
-    ref = passes[0]
+        for k in range(2):
+            path = os.path.join(tmp, f"chunks{k}.pkl")
+            out, k1, chunks, wall, peak = _drive(
+                batched.parameter_scan_fast, save_path=path, **CHUNK_GRID)
+            with open(path, "rb") as f:
+                raw = f.read()
+            passes.append(dict(wall=wall, k1=k1, peak=peak, raw=raw,
+                               entries=pickle.loads(raw)))
+            if out != [] or chunks != chunks_expected or \
+                    k1 != 30 * chunks:
+                fail(f"[10] pass {k}: {chunks} chunks, {k1} K1 launches, "
+                     f"expected {chunks_expected} and 30 a chunk")
+    ref, again = passes
     params = [e["params"] for e in ref["entries"]]
-    if [p["s"] for p in params] != PIPE_GRID["s"]:
+    if [p["s"] for p in params] != CHUNK_GRID["s"]:
         fail(f"[10] params {params}")
     _check_entries(ref["entries"], "[10]")
-    # Bit-equal where the sequential path repeats its own bits on the card;
-    # else [5]'s card bound on the 23 keys.
-    bit_equal_seq = passes[3]["raw"] == ref["raw"]
-    for k, p in enumerate(passes[1:], 1):
-        if [e["params"] for e in p["entries"]] != params:
-            fail(f"[10] pass {k}: params differ from pass 0's")
-        if bit_equal_seq:
-            if p["raw"] != ref["raw"]:
-                fail(f"[10] pass {k}: the pickle differs from pass 0's")
-        else:
-            for a, b in zip(ref["entries"], p["entries"]):
-                compare_results(a["results"], b["results"],
-                                f"[10] pass {k} vs pass 0")
-    s_run = {on: min(p["wall"] for p in passes if p["on"] == on) / runs
-             for on in (False, True)}
-    peak = {on: max(p["peak"] for p in passes if p["on"] == on)
-            for on in (False, True)}
-    log(f"[10] pipeline: parameter_scan_fast, {configs} configurations x "
-        f"{PIPE_GRID['reps']} reps in {chunks_expected} chunks, passes "
-        + ", ".join(f"{'on' if p['on'] else 'off'} {p['wall']:.3f} s"
-                    for p in passes)
-        + f"; best s/run off {s_run[False]:.4f}, on {s_run[True]:.4f} "
-        f"(on/off {s_run[True] / s_run[False]:.4f}); peak device memory off "
-        f"{peak[False] / 1e6:.1f} MB, on {peak[True] / 1e6:.1f} MB; "
-        + ("pickles byte-equal in all four passes" if bit_equal_seq else
-           "two sequential passes differ on the card: 23 keys within rtol "
+    if [e["params"] for e in again["entries"]] != params:
+        fail("[10] pass 1: params differ from pass 0's")
+    # Bit-equal where the card repeats its own bits; else [5]'s card bound
+    # on the 23 keys.
+    bit_equal = again["raw"] == ref["raw"]
+    if not bit_equal:
+        for a, b in zip(ref["entries"], again["entries"]):
+            compare_results(a["results"], b["results"], "[10] pass 1 vs 0")
+    s_run = min(p["wall"] for p in passes) / runs
+    peak = max(p["peak"] for p in passes)
+    log(f"[10] chunks: parameter_scan_fast, {configs} configurations x "
+        f"{CHUNK_GRID['reps']} reps in {chunks_expected} chunks, passes "
+        + ", ".join(f"{p['wall']:.3f} s" for p in passes)
+        + f"; best {s_run:.4f} s/run; peak device memory "
+        f"{peak / 1e6:.1f} MB; "
+        + ("pickles byte-equal" if bit_equal else
+           "the two passes differ on the card: 23 keys within rtol "
            f"{CARD_CPU_RTOL}, atol {CARD_CPU_ATOL}")
-        + f"; {passes[0]['k1']} K1 launches a pass; {smi}")
-    log(f"[10] pipeline: {time.perf_counter() - t_all:.1f} s")
-    return dict(s_per_run_off=s_run[False], s_per_run_on=s_run[True],
-                peak_off=peak[False], peak_on=peak[True],
-                bit_equal=bit_equal_seq,
+        + f"; {ref['k1']} K1 launches a pass; {smi}")
+    log(f"[10] chunks: {time.perf_counter() - t_all:.1f} s")
+    return dict(s_per_run=s_run, peak=peak, bit_equal=bit_equal,
                 launches=[p["k1"] for p in passes])
 
 
@@ -2814,78 +2789,71 @@ def threefry_bound(n_out: int, words_out: int, r: int):
     return bound_ms(8 * words_out + 16 * r, int_ops=HASH_OPS * n_out)
 
 
-def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi, other):
+def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi):
     """[14a] One shape: S2 (a fresh and a cheap epoch, from the epoch's
-    folded keys as the trainer calls it) and T1 (``bits`` over [R, S],
-    ``fold_in`` of R keys by an integer, ``split`` of R keys into 9)
-    bit-equal to their plain versions and to the earlier design's build
-    (``other``, ``ab_shuffle_kernels.Baseline``), timed in turns against
-    it; S1 in its three modes against its plain version.  Each one's
-    device and host issue ms beside the plain version's and the bound at
-    PEAK_INT32_OPS.  Returns the entry."""
+    folded keys as the trainer calls it), T1 (``bits`` over [R, S],
+    ``fold_in`` of R keys by an integer, ``split`` of R keys into 9) and S1
+    at its forms, each bit-equal to its plain version, with its device and
+    host issue ms (``ab_shuffle_kernels.queue_ms``) beside the plain
+    version's and the bound at PEAK_INT32_OPS.  Returns the entry."""
     from mfcd_tpu_torch.core import prng
     from mfcd_tpu_torch.ops import shuffle
     from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
 
     keys, counts, words = ab.case_inputs(r, s_len, count, arrays, dev)
-    calls = ab.case_calls(other, keys, counts, words, k_bits)
-    same = lambda a, b: a.shape == b.shape and bool(
-        torch.equal(a.view(torch.int32), b.view(torch.int32)))
     kw = dict(period=ab.PERIOD, tile_w=ab.TILE)
     entry = dict(label=label, r=r, s=s_len, count=count, k_bits=k_bits,
                  arrays=arrays)
 
-    def timed(name, plain, bound):
-        got, want = calls[name][0](), plain()
+    def timed(name, this, plain, bound):
+        got, want = this(), plain()
         torch.cuda.synchronize()
         pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
-        if not all(same(a, b) for a, b in pairs):
+        if not all(ab._same(a, b) for a, b in pairs):
             fail(f"[14a] {label}: {name} differs from its plain version")
-        t = ab.in_turns(*calls[name])
-        return dict(ms=t["this_ms"], host_ms=t["this_host_ms"],
-                    baseline_ms=t["other_ms"],
-                    baseline_host_ms=t["other_host_ms"], ratio=t["ratio"],
-                    host_ratio=t["host_ratio"],
-                    plain_ms=time_ms(plain, 1, 3), bound_ms=bound[0],
-                    bound_by=bound[1])
+        ms, host_ms = ab.queue_ms(this, rounds=QUEUE_ROUNDS)
+        return dict(ms=ms, host_ms=host_ms, plain_ms=time_ms(plain, 1, 3),
+                    bound_ms=bound[0], bound_by=bound[1])
 
     # S2: epoch 0 is a fresh PRP gather, epoch 1 a cheap one.
+    epoch_keys = prng.split(keys, 2)
     s2 = {}
     for epoch, kind in ((0, "fresh"), (1, "cheap")):
         s2[kind] = timed(
             f"S2 {kind}",
+            lambda ek=epoch_keys[:, epoch], epoch=epoch: shuffle.mix_stream(
+                words, ek, epoch, counts, k_bits, folded=True, **kw),
             lambda epoch=epoch: shuffle.mix_stream_reference(
                 words, keys, epoch, counts, k_bits, **kw),
             bound_ms(stream_bytes(r, s_len, arrays), int_ops=stream_ops(
                 keys, epoch, counts, s_len, k_bits)))
     mean = lambda k: (s2["fresh"][k] + 3 * s2["cheap"][k]) / 4
     entry["mix_stream"] = dict(
-        s2, **{k: mean(k) for k in ("ms", "host_ms", "baseline_ms",
-                                    "baseline_host_ms", "plain_ms",
+        s2, **{k: mean(k) for k in ("ms", "host_ms", "plain_ms",
                                     "bound_ms")},
         bound_by=s2["cheap"]["bound_by"])
     # S1 at its forms (ab.prp_forms): the three walks over one shared row
     # of the stream's int64 slots, and prp_splits' two calls.
     entry["shuffle_prp"] = {
-        name: prp_entry(other, *form)
+        name: prp_entry(*form)
         for name, form in ab.prp_forms(keys, counts, s_len, k_bits).items()}
     # T1: the counter entry's bits and split, the hash entry's fold_in.
     entry["threefry2x32"] = {
-        "bits": timed("T1 bits", lambda: prng.bits_reference(keys, (s_len,)),
+        "bits": timed("T1 bits", lambda: prng.bits(keys, (s_len,)),
+                      lambda: prng.bits_reference(keys, (s_len,)),
                       threefry_bound(r * s_len, r * s_len, r)),
-        "fold_in": timed("T1 fold_in",
+        "fold_in": timed("T1 fold_in", lambda: prng.fold_in(keys, 7),
                          lambda: prng.fold_in_reference(keys, 7),
                          threefry_bound(r, 2 * r, r)),
-        "split": timed("T1 split", lambda: prng.split_reference(keys, 9),
+        "split": timed("T1 split", lambda: prng.split(keys, 9),
+                       lambda: prng.split_reference(keys, 9),
                        threefry_bound(9 * r, 18 * r, r)),
     }
     log(f"[14a] {label} (R={r}, S={s_len}, count {count}, k={k_bits}, "
         f"{arrays} array{'s' if arrays > 1 else ''}): S1, S2, T1 bit-equal "
-        f"to their plain versions and the earlier build; device ms a call "
-        f"(host issue ms), this build against the earlier: S2 fresh "
-        f"{_row(s2['fresh'])}; S2 cheap {_row(s2['cheap'])}; period mean "
-        f"{entry['mix_stream']['ms']:.4f} against "
-        f"{entry['mix_stream']['baseline_ms']:.4f}; "
+        f"to their plain versions; device ms a call (host issue ms): S2 "
+        f"fresh {_row(s2['fresh'])}; S2 cheap {_row(s2['cheap'])}; period "
+        f"mean {entry['mix_stream']['ms']:.4f}; "
         + "; ".join(f"T1 {k} {_row(v)}"
                     for k, v in entry["threefry2x32"].items())
         + "; " + "; ".join(f"S1 {k} {_row(v)}"
@@ -2895,36 +2863,36 @@ def shuffle_case(dev, label, r, s_len, count, k_bits, arrays, smi, other):
 
 
 def _row(v) -> str:
-    return (f"{v['ms']:.4f} ({v['host_ms']:.4f}) against "
-            f"{v['baseline_ms']:.4f} ({v['baseline_host_ms']:.4f}); plain "
+    return (f"{v['ms']:.4f} ({v['host_ms']:.4f}); plain "
             f"{v['plain_ms']:.2f}, bound {v['bound_ms']:.6f} {v['bound_by']}")
 
 
 PRP_MODES = {0: "capped", 1: "exact", 2: "inverse"}
 # The keys of an S1 entry that the kernels line carries.
-PRP_KEYS = ("ms", "host_ms", "baseline_ms", "baseline_host_ms", "plain_ms",
-            "bound_ms", "bound_by")
+PRP_KEYS = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by")
 
 
-def prp_entry(other, mode, key, slots, count, k_bits):
-    """One S1 call through ``ab_shuffle_kernels.prp_row`` (bit-equal to
-    its plain version and to the earlier design's build ``other``, timed
-    in turns against it: device and host issue ms), with its plain
-    version's ms and its bound."""
+def prp_entry(mode, key, slots, count, k_bits):
+    """One S1 call, bit-equal to its plain version, with its device and
+    host issue ms, its plain version's ms and its bound."""
+    from mfcd_tpu_torch.ops import shuffle
     from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
 
     form = (mode, key, slots, count, k_bits)
-    row = ab.prp_row(other, form)
-    plain = ab.prp_calls(other, *form)[2]
+    name = ab.PRP_FNS[mode]
+    this = lambda: getattr(shuffle, name)(key, slots, count, k_bits)
+    plain = lambda: getattr(shuffle, name + "_reference")(key, slots, count,
+                                                          k_bits)
+    if not ab._same(this(), plain()):
+        fail(f"[14] S1 at {ab.describe(*form)} differs from its plain "
+             f"version")
+    ms, host_ms = ab.queue_ms(this, rounds=QUEUE_ROUNDS)
     bound, by = prp_bound(PRP_MODES[mode], key, slots, count, k_bits)
-    return dict(ab.describe(*form), ms=row["this_ms"],
-                host_ms=row["this_host_ms"], baseline_ms=row["other_ms"],
-                baseline_host_ms=row["other_host_ms"], ratio=row["ratio"],
-                host_ratio=row["host_ratio"], plain_ms=time_ms(plain, 1, 3),
-                bound_ms=bound, bound_by=by)
+    return dict(ab.describe(*form), ms=ms, host_ms=host_ms,
+                plain_ms=time_ms(plain, 1, 3), bound_ms=bound, bound_by=by)
 
 
-def main_path_prp_phase(other, smi):
+def main_path_prp_phase(smi):
     """[14c] S1 at the calls the main path makes: each configuration of
     ``ab.record_prp_calls`` run at one epoch with S1's arguments recorded,
     then each call replayed through ``prp_entry``.  Returns {configuration:
@@ -2938,7 +2906,7 @@ def main_path_prp_phase(other, smi):
     for label, calls in recorded.items():
         if not calls:
             log(f"[14c] {label}: no S1 call")
-        out[label] = [prp_entry(other, *call) for call in calls]
+        out[label] = [prp_entry(*call) for call in calls]
         for e in out[label]:
             log(f"[14c] {label}: {e['fn']}, key {e['key']} stride "
                 f"{e['key_stride']}, slots {e['slots']} {e['slots_dtype']} "
@@ -3014,22 +2982,19 @@ def strict_loop_phase(smi):
 
 
 def shuffle_phase(dev, smi, main_launches):
-    """[14] S1, S2 and T1 at every shape of ``ab.SHUFFLE_CASES`` in turns
-    against the earlier design built from ``scripts/ab_baseline/``, the
-    canonical epoch loop with no host sync, then S1 at the main path's own
-    calls.  Returns (cases, loop, main-path S1 calls)."""
+    """[14] S1, S2 and T1 at every shape of ``ab.SHUFFLE_CASES`` against
+    their plain versions, the canonical epoch loop with no host sync, then
+    S1 at the main path's own calls.  Returns (cases, loop, main-path S1
+    calls)."""
     from mfcd_tpu_torch.scripts import ab_shuffle_kernels as ab
 
     t0 = time.perf_counter()
-    other = ab.Baseline()
-    log(f"[14] the earlier S1, S2, T1 built in {time.perf_counter() - t0:.1f}"
-        f" s; launches of a canonical parameter_scan call ([4]): S2 "
+    log(f"[14] launches of a canonical parameter_scan call ([4]): S2 "
         f"{main_launches['s2']}, T1 {main_launches['t1']}, S1 "
         f"{main_launches['s1']}")
-    cases = [shuffle_case(dev, *case, smi, other)
-             for case in ab.SHUFFLE_CASES]
+    cases = [shuffle_case(dev, *case, smi) for case in ab.SHUFFLE_CASES]
     loop = strict_loop_phase(smi)
-    main_path = main_path_prp_phase(other, smi)
+    main_path = main_path_prp_phase(smi)
     log(f"[14] epoch shuffle and threefry: {time.perf_counter() - t0:.1f} s")
     return cases, loop, main_path
 
@@ -3258,8 +3223,8 @@ def main() -> int:
     # [9] AltSVM: K2 against its plain version, then the model at full size.
     alt_entries = altsvm_phase(dev, smi)
 
-    # [10] The chunk pipeline off and on.
-    pipe = pipeline_phase(smi)
+    # [10] A scan over four chunks, twice.
+    chunk_run = chunk_phase(smi)
 
     # [11] The mesh: the sharded step, the grid-sharded sweep and cell 18
     # over ranks of torch.distributed jobs on the card.
@@ -3323,7 +3288,7 @@ def main() -> int:
         "cluster": timings[0]["cluster"],
         "blocks_per_sm": timings[0]["blocks_per_sm"],
         "regimes": timings,
-        "pipeline": pipe,
+        "chunks": chunk_run,
     }, {
         "name": "shuffle_prp",
         "route": "cuda",
@@ -3350,8 +3315,6 @@ def main() -> int:
         "redesigned": True,
         "ms": canon_shuffle["mix_stream"]["ms"],
         "host_ms": canon_shuffle["mix_stream"]["host_ms"],
-        "baseline_ms": canon_shuffle["mix_stream"]["baseline_ms"],
-        "baseline_host_ms": canon_shuffle["mix_stream"]["baseline_host_ms"],
         "plain_ms": canon_shuffle["mix_stream"]["plain_ms"],
         "bound_ms": canon_shuffle["mix_stream"]["bound_ms"],
         "bound_by": canon_shuffle["mix_stream"]["bound_by"],
@@ -3368,9 +3331,6 @@ def main() -> int:
         "redesigned": True,
         "ms": canon_shuffle["threefry2x32"]["bits"]["ms"],
         "host_ms": canon_shuffle["threefry2x32"]["bits"]["host_ms"],
-        "baseline_ms": canon_shuffle["threefry2x32"]["bits"]["baseline_ms"],
-        "baseline_host_ms": canon_shuffle["threefry2x32"]["bits"][
-            "baseline_host_ms"],
         "plain_ms": canon_shuffle["threefry2x32"]["bits"]["plain_ms"],
         "bound_ms": canon_shuffle["threefry2x32"]["bits"]["bound_ms"],
         "bound_by": canon_shuffle["threefry2x32"]["bits"]["bound_by"],

@@ -10,13 +10,6 @@ a bucket; only shape-changing parameters split buckets.  Run keys are
 folded from the global config index, so results do not depend on how the
 grid was bucketed or chunked.
 
-``MFCD_PIPELINE=1`` turns on the 1-deep chunk pipeline
-(:func:`pipeline_enabled`): one worker thread runs chunk k+1's dispatch
-(``_run_bucket_device`` and the copy of its outputs to the host) while the
-caller exports and persists chunk k.  Results and the pickle are the same
-bits, in the same order, with it off or on.  Its default is off on the
-card until a card measurement records otherwise (``core/decisions.py``).
-
 ``mesh=`` (:func:`make_sweep_mesh`, a 1-D ``("grid",)`` mesh over the
 ranks of a ``torch.distributed`` job, ``parallel/``) shards each chunk over
 the ranks, as the JAX package shards it over devices: every rank calls the
@@ -26,19 +19,17 @@ it, and gathers every rank's results, so each rank returns the whole list
 (the padding dropped).  The chunks are the ones an unsharded scan runs, so
 results and the pickle are the same bits; only rank 0 writes it.  The
 ranks agree on a chunk's failure before any of them bisects it.  Every
-collective runs on the caller's thread, in chunk order.
+collective runs in chunk order.
 
 Not ported: the TPU-transport retries and compile-cache purge
 (``ROADMAP.md``).  The phases are stage spans (``utils/observability``):
-``mfcd.sweep.dispatch`` and ``mfcd.sweep.collect`` (the copy to the host;
-both on the worker when pipelined), ``mfcd.sweep.wait`` (the caller
-waiting for a chunk), ``mfcd.sweep.gather`` (the ranks' results, under a
-mesh), ``mfcd.sweep.export``, ``mfcd.sweep.persist``.
+``mfcd.sweep.dispatch``, ``mfcd.sweep.collect`` (the copy to the host),
+``mfcd.sweep.gather`` (the ranks' results, under a mesh),
+``mfcd.sweep.export``, ``mfcd.sweep.persist``.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import sys
 from typing import Any, Dict, List, Optional, Sequence
@@ -48,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from mfcd_tpu_torch.backend import resolve_device
-from mfcd_tpu_torch.core import decisions, prng, rng
+from mfcd_tpu_torch.core import prng, rng
 from mfcd_tpu_torch.core.config import (TRAIN_RATIO, RunConfig, SweepSpec,
                                         _next_pow2, bucket_by_shape)
 from mfcd_tpu_torch.core.results import export_results
@@ -87,14 +78,6 @@ def _is_oom(err: BaseException) -> bool:
     chunk size, so the answer is bisection, not a retry."""
     return (isinstance(err, torch.cuda.OutOfMemoryError)
             or "out of memory" in str(err).lower())
-
-
-def pipeline_enabled() -> bool:
-    """Whether the 1-deep chunk pipeline is on: ``MFCD_PIPELINE``, else the
-    card's decision artifact ``pipeline`` (``docs/decisions_cuda/``, none
-    committed), else off.  The TPU's ``docs/decisions/pipeline.json`` is
-    never read."""
-    return decisions.flag_enabled("MFCD_PIPELINE", "pipeline", default=False)
 
 
 def make_sweep_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
@@ -144,51 +127,7 @@ def _gather(mesh: Mesh, host: Optional[Dict[str, torch.Tensor]],
         return {k: torch.cat([blk[k] for blk in blocks]) for k in blocks[0]}
 
 
-class BucketFuture:
-    """A dispatched chunk: its host results now or later, collected once.
-
-    ``dispatch()`` runs on ``executor`` (one worker thread) when one is
-    given, else at once; any error it raises is kept and raised by
-    :meth:`collect`, so a pipelined caller meets every failure in chunk
-    order.  An OOM reaches the caller's bisector from ``collect()`` at
-    once, and so does every other error: nothing is retried.  Under a
-    ``mesh`` the dispatch holds this rank's block; ``collect()`` (on the
-    caller's thread) agrees with the other ranks on failure and gathers
-    every rank's block, in rank order."""
-
-    def __init__(self, dispatch, postprocess,
-                 executor: Optional[concurrent.futures.Executor] = None,
-                 mesh: Optional[Mesh] = None):
-        self._post = postprocess
-        self._mesh = mesh
-        if executor is not None:
-            self._job = executor.submit(obs.carry(dispatch))
-            return
-        self._job = concurrent.futures.Future()
-        try:
-            self._job.set_result(dispatch())
-        except Exception as err:  # noqa: BLE001 - raised again by collect()
-            self._job.set_exception(err)
-
-    def wait(self) -> None:
-        """Block until the dispatch has ended; raise nothing."""
-        concurrent.futures.wait([self._job])
-
-    def collect(self) -> List[Dict[str, Any]]:
-        with obs.span("mfcd.sweep.wait"):
-            try:
-                host, err = self._job.result(), None
-            except Exception as e:  # noqa: BLE001 - raised here or by _gather
-                if self._mesh is None:
-                    raise
-                host, err = None, e
-        if self._mesh is not None:
-            host = _gather(self._mesh, host, err)
-        with obs.span("mfcd.sweep.export"):
-            return self._post(host)
-
-
-def run_bucket_async(
+def run_bucket(
     cfg: RunConfig,
     hyper_rows: Sequence[Dict[str, float]],
     config_indices: Sequence[int],
@@ -196,15 +135,13 @@ def run_bucket_async(
     caps=None,
     bucket_configs: Optional[Sequence[RunConfig]] = None,
     device=None,
-    executor: Optional[concurrent.futures.Executor] = None,
     mesh: Optional[Mesh] = None,
     use_kernel: Optional[bool] = None,
-) -> BucketFuture:
-    """Dispatch a same-shape bucket of configurations on ``device``; returns
-    a :class:`BucketFuture` whose ``collect()`` gives one reference results
-    dict per configuration, in bucket order.  Under a ``mesh`` (on its
-    device) this rank runs its block of the bucket, padded to a multiple
-    of the rank count, and ``collect()`` gathers the rest.
+) -> List[Dict[str, Any]]:
+    """Run a same-shape bucket of configurations on ``device``; returns one
+    reference results dict per configuration, in bucket order.  Under a
+    ``mesh`` (on its device) this rank runs its block of the bucket,
+    padded to a multiple of the rank count, and gathers the rest.
 
     ``hyper_rows`` carries ``{'s', 'lr', 'weight_decay'}`` per
     configuration and ``config_indices`` their global experiment indices
@@ -217,11 +154,9 @@ def run_bucket_async(
     not fit), ``False`` the eager trainer
     (:func:`~mfcd_tpu_torch.sweep.engine.resolve_use_kernel`).
 
-    The keys and per-run values are made here, in the caller; the runs and
-    the copy of their outputs to the host are the dispatch, which runs on
-    ``executor`` when one is given.  It copies to the host itself, so the
-    caller's collect never waits behind a later chunk's kernels; and it
-    makes the caller's card current in the worker thread."""
+    An error of the runs or of the copy to the host raises at once;
+    under a mesh the ranks first agree on it (:func:`_gather`), so every
+    rank raises."""
     b = len(hyper_rows)
     shs = ([c.shapes() for c in bucket_configs] if bucket_configs is not None
            else [cfg.shapes()] * b)
@@ -241,11 +176,11 @@ def run_bucket_async(
     idx = torch.as_tensor(np.asarray(idx, np.int64), device=device)
     cfg_keys = rng.config_key(prng.key(seed, device=device)[None], idx)
     column = lambda key: np.asarray([r[key] for r in rows], np.float32)
-    card = cfg_keys.device.index if device.type == "cuda" else None
-
-    def dispatch():
-        if card is not None:
-            torch.cuda.set_device(card)
+    host, err = None, None
+    try:
+        if device.type == "cuda":
+            # The kernels behind C interfaces launch on the current card.
+            torch.cuda.set_device(cfg_keys.device.index)
         with obs.span("mfcd.sweep.dispatch"):
             out = _run_bucket_device(
                 dataclasses.replace(cfg, s=0.0, lr=0.0, weight_decay=0.0),
@@ -255,9 +190,14 @@ def run_bucket_async(
                 extra_budgets=np.asarray(
                     [sh.extra_test_triplets for sh in shs], np.int32))
         with obs.span("mfcd.sweep.collect"):
-            return {k: v.cpu() for k, v in out.items()}
-
-    def postprocess(host):
+            host = {k: v.cpu() for k, v in out.items()}
+    except Exception as e:  # noqa: BLE001 - raised here or by _gather
+        if mesh is None:
+            raise
+        err = e
+    if mesh is not None:
+        host = _gather(mesh, host, err)
+    with obs.span("mfcd.sweep.export"):
         results = []
         for bi in range(b):
             per_cfg = {k: v[bi] for k, v in host.items()}
@@ -268,26 +208,6 @@ def run_bucket_async(
                           file=sys.stderr)
             results.append(export_results(per_cfg))
         return results
-
-    return BucketFuture(dispatch, postprocess, executor, mesh)
-
-
-def run_bucket(
-    cfg: RunConfig,
-    hyper_rows: Sequence[Dict[str, float]],
-    config_indices: Sequence[int],
-    seed: int = DEFAULT_SEED,
-    caps=None,
-    bucket_configs: Optional[Sequence[RunConfig]] = None,
-    device=None,
-    mesh: Optional[Mesh] = None,
-    use_kernel: Optional[bool] = None,
-) -> List[Dict[str, Any]]:
-    """Synchronous :func:`run_bucket_async`: dispatch, collect, export."""
-    return run_bucket_async(cfg, hyper_rows, config_indices, seed=seed,
-                            caps=caps, bucket_configs=bucket_configs,
-                            device=device, mesh=mesh,
-                            use_kernel=use_kernel).collect()
 
 
 def memory_budget_bytes(device) -> float:
@@ -389,13 +309,7 @@ def default_max_bucket(cfg: RunConfig, t_cap: Optional[int] = None,
                        device=None) -> int:
     """Configurations per chunk: the memory budget over the per-run bytes
     (at least 4 runs), divided by the repetitions per configuration, as in
-    the JAX package.  Printed once per process and choice.
-
-    With the pipeline on, two chunks are in flight: the one being exported
-    holds only host memory (its dispatch copied its outputs to the host and
-    freed them), and the one being dispatched its card working set, so at
-    most one chunk's working set is on the card; a chunk is budgeted a
-    quarter of it, so even two would fit."""
+    the JAX package.  Printed once per process and choice."""
     global _logged_max_bucket
     device = resolve_device(device)
     per_run = run_bytes(cfg, t_cap)
@@ -434,10 +348,9 @@ def parameter_scan_fast(
     compatibility with the JAX package's and the sequential scan's
     signature, and ignored.  ``resume=True`` keeps an existing results file and
     skips configurations already in it.  A chunk that runs out of device
-    memory is split in two and retried, down to single configurations.
-    With ``MFCD_PIPELINE=1`` (:func:`pipeline_enabled`) chunk k+1 is
-    dispatched on a worker thread before chunk k is collected; the results
-    and the pickle are the same.  ``device=None`` means the card.
+    memory is split in two and retried, down to single configurations; a
+    chunk that fails otherwise raises, every chunk before it persisted.
+    ``device=None`` means the card.
 
     Under a ``mesh`` (:func:`make_sweep_mesh`; every rank calls the scan
     with the same arguments) each chunk is sharded over the ranks, and
@@ -468,93 +381,52 @@ def parameter_scan_fast(
                 reset_save_path(save_path)
 
         slot_results: List[Optional[Dict]] = [None] * len(configs)
-        # MFCD_PIPELINE: one worker thread dispatches chunk k+1 while this
-        # thread exports and persists chunk k.
-        pool = (concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="mfcd-dispatch")
-            if pipeline_enabled() else None)
-        try:
-            for indices in buckets.values():
-                indices = [i for i in indices if param_sets[i] not in done]
-                if not indices:
-                    continue
-                rep_cfg = configs[indices[0]]
-                caps = compile_caps(rep_cfg) if pad_compiles else None
-                bucket_cap = (max_bucket if max_bucket is not None
-                              else default_max_bucket(
-                                  rep_cfg, t_cap=caps[0] if caps else None,
-                                  device=device))
+        for indices in buckets.values():
+            indices = [i for i in indices if param_sets[i] not in done]
+            if not indices:
+                continue
+            rep_cfg = configs[indices[0]]
+            caps = compile_caps(rep_cfg) if pad_compiles else None
+            bucket_cap = (max_bucket if max_bucket is not None
+                          else default_max_bucket(
+                              rep_cfg, t_cap=caps[0] if caps else None,
+                              device=device))
 
-                def dispatch_chunk(chunk) -> BucketFuture:
-                    return run_bucket_async(
+            def run_chunk(chunk):
+                """A chunk's results; on a device OOM, split it in two and
+                run the halves (the per-run estimate is a model: halving
+                converges on a chunk that fits)."""
+                try:
+                    return run_bucket(
                         rep_cfg,
                         [{"s": configs[i].s, "lr": configs[i].lr,
                           "weight_decay": configs[i].weight_decay}
                          for i in chunk],
                         chunk, seed=seed, caps=caps,
                         bucket_configs=[configs[i] for i in chunk],
-                        device=device, executor=pool, mesh=mesh)
-
-                def collect_or_bisect(chunk, fut, in_flight=None):
-                    """Collect a chunk; on a device OOM, split it in two and
-                    run the halves (the per-run estimate is a model: halving
-                    converges on a chunk that fits).  A chunk ``in_flight``
-                    behind it is drained first, so the halves run alone."""
-                    try:
-                        return fut.collect()
-                    except RuntimeError as err:
-                        if not _is_oom(err) or len(chunk) <= 1:
-                            raise
-                    print(f"⚠️ device OOM on a {len(chunk)}-config chunk; "
-                          + ("draining the in-flight chunk, then "
-                             if in_flight is not None else "") + "bisecting",
-                          file=sys.stderr)
-                    if in_flight is not None:
-                        in_flight.wait()
-                    if device.type == "cuda":
-                        torch.cuda.empty_cache()
-                    mid = len(chunk) // 2
-                    return run_chunk(chunk[:mid]) + run_chunk(chunk[mid:])
-
-                def run_chunk(chunk):
-                    return collect_or_bisect(chunk, dispatch_chunk(chunk))
-
-                def store(chunk, outs):
-                    for i, res in zip(chunk, outs):
-                        slot_results[i] = res
-                    if save_path and writer:
-                        with obs.span("mfcd.sweep.persist"):
-                            append_results(save_path, [
-                                {"params": param_sets[i], "results": res}
-                                for i, res in zip(chunk, outs)])
-
-                # One loop for both settings.  Pipelined, chunk k+1 is
-                # dispatched (on the worker) before chunk k is collected,
-                # exported and persisted; sequential, chunk k is done first.
-                # Chunks persist in chunk order and errors surface in chunk
-                # order.  An eager failure of chunk k+1's dispatch persists
-                # chunk k before it surfaces, as the sequential order would.
-                pending = None
-                for lo in range(0, len(indices), bucket_cap):
-                    chunk = indices[lo:lo + bucket_cap]
-                    if pending is not None and pool is None:
-                        store(pending[0], collect_or_bisect(*pending))
-                        pending = None
-                    try:
-                        fut = dispatch_chunk(chunk)
-                    except Exception:
-                        if pending is not None:
-                            store(pending[0], collect_or_bisect(*pending))
+                        device=device, mesh=mesh)
+                except RuntimeError as err:
+                    if not _is_oom(err) or len(chunk) <= 1:
                         raise
-                    if pending is not None:
-                        store(pending[0], collect_or_bisect(*pending,
-                                                            in_flight=fut))
-                    pending = (chunk, fut)
-                if pending is not None:
-                    store(pending[0], collect_or_bisect(*pending))
-        finally:
-            if pool is not None:
-                pool.shutdown(wait=True)
+                print(f"⚠️ device OOM on a {len(chunk)}-config chunk; "
+                      "bisecting", file=sys.stderr)
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                mid = len(chunk) // 2
+                return run_chunk(chunk[:mid]) + run_chunk(chunk[mid:])
+
+            def store(chunk, outs):
+                for i, res in zip(chunk, outs):
+                    slot_results[i] = res
+                if save_path and writer:
+                    with obs.span("mfcd.sweep.persist"):
+                        append_results(save_path, [
+                            {"params": param_sets[i], "results": res}
+                            for i, res in zip(chunk, outs)])
+
+            for lo in range(0, len(indices), bucket_cap):
+                chunk = indices[lo:lo + bucket_cap]
+                store(chunk, run_chunk(chunk))
 
         if save_path:
             return []

@@ -124,7 +124,7 @@ class _Thread:
     costs several times as much, and an edge reads a few)."""
 
     __slots__ = ("ident", "call", "stack", "timeline", "stream", "last",
-                 "root_parent", "detail", "detail_depth")
+                 "detail", "detail_depth")
 
     def __init__(self):
         self.ident = threading.get_ident()
@@ -133,7 +133,6 @@ class _Thread:
         self.timeline: Optional[list] = None
         self.stream = None                  # the stream its events go on
         self.last = 0                       # host ns of the thread's last edge
-        self.root_parent: Optional[int] = None  # parent of its outermost span
         self.detail: Optional[_Detail] = None   # the open detail span
         self.detail_depth = 0               # open ``details`` blocks
 
@@ -192,7 +191,7 @@ class Recorder:
             if call.card:
                 th.stream = self._stream()
         sp = _Span(name, call.id, next(self._span_ids),
-                   stack[-1].id if stack else th.root_parent, th.ident)
+                   stack[-1].id if stack else None, th.ident)
         sp.start = self._edge(th, call, sp)
         stack.append(sp)
         call.spans.append(sp)
@@ -272,23 +271,6 @@ class Recorder:
                 self.detail(None)
                 th.detail = None
             th.detail_depth -= 1
-
-    def carry(self, fn: Callable) -> Callable:
-        """``fn``, to run on another thread as part of the call open on
-        this one: its spans join the call, on that thread's own stack, the
-        outermost a child of the span open here now."""
-        here = self._thread()
-        call, parent = here.call, here.stack[-1].id if here.stack else None
-
-        def run(*args, **kwargs):
-            th = self._thread()
-            prev = th.call, th.root_parent
-            th.call, th.root_parent = call, parent
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                th.call, th.root_parent = prev
-        return run
 
     # -- calls ------------------------------------------------------------
     @contextlib.contextmanager
@@ -513,11 +495,6 @@ def detail(name: Optional[str]) -> None:
     stage, timed on the host and the card, whose time stays in the
     stage's self time.  Nothing happens outside such a block."""
     _RECORDER.detail(name)
-
-
-def carry(fn: Callable) -> Callable:
-    """``fn``, to run on another thread as part of the open call."""
-    return _RECORDER.carry(fn)
 
 
 def calls() -> List[dict]:

@@ -52,22 +52,6 @@ def scan(kw):
     return parameter_scan_fast(mesh=make_sweep_mesh(device="cpu"), **kw)
 
 
-def scan_pipelined(kw):
-    """``scan`` with ``MFCD_PIPELINE=1``: chunks dispatched on the worker
-    thread, the gathers on this one."""
-    import os
-
-    from mfcd_tpu_torch.core import decisions
-
-    os.environ["MFCD_PIPELINE"] = "1"
-    decisions._cache.clear()
-    try:
-        return scan(kw)
-    finally:
-        del os.environ["MFCD_PIPELINE"]
-        decisions._cache.clear()
-
-
 def scan_oom_on(rank, kw):
     """``scan`` with rank ``rank``'s device run out of memory on every
     block of more than one configuration; returns the scan and the block

@@ -27,6 +27,7 @@ torch.set_num_threads(1)
 CFG = dict(n=24, m=28, d=2, p=0.4, s=[1.0, 4.0], lr=1e-2, weight_decay=1e-5,
            num_epochs=2, reps=2, K=1)
 SMALL = dict(CFG, num_epochs=1, reps=1, s=[1.0, 4.0, 6.0])
+WIDE = dict(CFG, s=[1.0, 2.0, 4.0, 6.0, 8.0])
 
 
 def _flat(v):
@@ -61,10 +62,18 @@ def test_fast_scan_matches_sequential(fast):
     _assert_scans_close(seq, fast, rtol=1e-6, atol=1e-7)
 
 
-def test_chunk_of_one_matches_default(fast):
-    one = mfcd_tpu_torch.parameter_scan_fast(device="cpu", max_bucket=1,
-                                             **CFG)
-    _assert_scans_close(fast, one, rtol=1e-6, atol=1e-7)
+@pytest.fixture(scope="module")
+def fast_wide():
+    return mfcd_tpu_torch.parameter_scan_fast(device="cpu", **WIDE)
+
+
+@pytest.mark.parametrize("max_bucket", [1, 2, 3, 4])
+def test_chunk_of_one_matches_default(fast_wide, max_bucket):
+    # Five configurations in one chunk, against chunks of 1 to 4: the
+    # chunk boundaries change no stream, only the runs a call.
+    chunked = mfcd_tpu_torch.parameter_scan_fast(
+        device="cpu", max_bucket=max_bucket, **WIDE)
+    _assert_scans_close(fast_wide, chunked, rtol=1e-6, atol=1e-7)
 
 
 def test_save_path_and_resume(tmp_path):

@@ -3,8 +3,8 @@ epoch (K1) at every launch shape, R and batch size it takes, its five stage
 variants (P1) and the factored-layout epoch (P2), which are K1's code and
 take the same launch shapes and batch sizes (P1's ``full`` bit-equal to
 K1), and AltSVM's phase kernel (K2); and every sampler, every generator,
-the ground-truth oracle, AltSVM and the chunk pipeline on the card against
-the CPU or the sequential loop.
+the ground-truth oracle and AltSVM on the card against the CPU or the
+sequential loop.
 
 Imports neither jax nor ``mfcd_tpu``, so it runs on a machine with the card
 and without jax::
@@ -822,38 +822,6 @@ def test_train_altsvm_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.cuda
-def test_pipeline_on_the_card_matches_off(tmp_path, monkeypatch):
-    """``parameter_scan_fast`` with ``MFCD_PIPELINE`` on and off on the
-    card (3 chunks): the same params in the same order, K1 launched for
-    every chunk in both modes, and the 23 keys within chip_smoke.py's
-    card bar (rtol, atol 2e-3) of each other."""
-    import pickle
-
-    from mfcd_tpu_torch.core.results import RESULT_KEYS
-    from mfcd_tpu_torch.sweep import batched
-
-    _card()
-    grid = dict(n=24, m=24, d=2, p=0.6, s=[1.0, 2.0, 3.0], num_epochs=2,
-                reps=2, max_bucket=1)
-    out = {}
-    for flag in ("0", "1"):
-        monkeypatch.setenv("MFCD_PIPELINE", flag)
-        before = K.EPOCH_LAUNCHES
-        path = str(tmp_path / f"p{flag}.pkl")
-        batched.parameter_scan_fast(save_path=path, **grid)
-        assert K.EPOCH_LAUNCHES - before == 2 * 3
-        with open(path, "rb") as f:
-            out[flag] = pickle.load(f)
-    assert [e["params"] for e in out["0"]] == [e["params"] for e in out["1"]]
-    for a, b in zip(out["0"], out["1"]):
-        for k in RESULT_KEYS:
-            for x, y in zip(a["results"][k], b["results"][k]):
-                np.testing.assert_allclose(np.asarray(x, np.float64),
-                                           np.asarray(y, np.float64),
-                                           rtol=2e-3, atol=2e-3, err_msg=k)
-
-
-@pytest.mark.cuda
 def test_cdf_samplers_do_not_depend_on_the_chunk():
     """The variance and popularity proposals of a run are the same bits
     alone or beside other runs on the card (their CDFs are summed and
@@ -960,39 +928,6 @@ def test_prp_kernel_at_the_samplers_forms(shape, form):
     assert SH.PRP_LAUNCHES == before + 1
     want = getattr(SH, name + "_reference")(*args)
     assert got.dtype == torch.int32 and torch.equal(got, want)
-
-
-@pytest.fixture(scope="module")
-def baseline_build():
-    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as AB
-
-    _card()
-    return AB.Baseline()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["capped", "exact", "inverse"])
-def test_prp_kernel_matches_the_earlier_build(mode, baseline_build):
-    # S1 against the one-slot-a-thread build at the canonical shape, every
-    # form of both tests above.
-    from mfcd_tpu_torch.ops import shuffle as SH
-    from mfcd_tpu_torch.scripts import ab_shuffle_kernels as AB
-
-    dev = _card()
-    r, s_len, count, k_bits = SHUFFLE_SHAPES["canonical"]
-    keys = _shuffle_keys(r, dev)
-    counts = torch.tensor([count - 17 * i for i in range(r)],
-                          dtype=torch.int32, device=dev)
-    m = {"capped": SH._CAPPED, "exact": SH._EXACT,
-         "inverse": SH._INVERSE}[mode]
-    forms = [(m, *args, k_bits) for args in _prp_forms(
-        keys, counts, s_len, k_bits).values()]
-    forms += [f for f in AB.prp_forms(keys, counts, s_len, k_bits).values()
-              if f[0] == m]
-    for form in forms:
-        old = baseline_build.prp(*form[1:], form[0])
-        got = getattr(SH, PRP_NAMES[mode])(*form[1:])
-        assert torch.equal(got, old)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,6 @@ the spans of every entry point, their call records, the profiler ranges
 they open only under a profiler, the sync counter, and the card timeline's
 bookkeeping over stand-in events whose times the test sets."""
 
-import threading
 import warnings
 
 import numpy as np
@@ -239,40 +238,6 @@ def test_a_call_resolves_at_the_next_entry_or_when_the_log_is_read():
     with rec.call("scan", "cuda"):
         assert rec._log[-1]["card_ns"] is None
     assert all(r["card_ns"] is not None for r in rec.calls())
-
-
-def test_a_carried_thread_joins_the_call_with_its_own_self_time():
-    clock = Clock()
-    rec = obs.Recorder(event=clock.event, stream=lambda: None)
-
-    def dispatch():
-        with obs.span("mfcd.sweep.dispatch", rec):
-            with obs.span("mfcd.sample", rec):
-                rec.count_runs(3)
-        return threading.get_ident()
-
-    with rec.call("scan_fast", "cuda"):
-        with obs.span("mfcd.sweep.wait", rec):
-            box, job = [], rec.carry(dispatch)
-            worker = threading.Thread(target=lambda: box.append(job()))
-            worker.start()
-            worker.join(timeout=30)
-            assert not worker.is_alive()
-    dispatch()                            # outside any call: not recorded
-    (r,) = rec.calls()
-    assert r["runs"] == 3
-    by_name = {sp["name"]: sp for sp in r["spans"]}
-    assert by_name["mfcd.sweep.dispatch"]["thread"] == box[0]
-    assert by_name["mfcd.sweep.dispatch"]["parent"] == \
-        by_name["mfcd.sweep.wait"]["id"]
-    assert by_name["mfcd.sample"]["parent"] == \
-        by_name["mfcd.sweep.dispatch"]["id"]
-    assert all(sp["call"] == r["id"] for sp in r["spans"])
-    for sp in r["spans"]:
-        kids = _children(r, sp["id"])
-        same = [k for k in kids if k["thread"] == sp["thread"]]
-        assert sp["host_ns"] == (sp["end_ns"] - sp["start_ns"]) - sum(
-            k["end_ns"] - k["start_ns"] for k in same)
 
 
 def test_the_log_is_bounded_and_keeps_raw_spans_of_the_newest_calls():

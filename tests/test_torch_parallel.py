@@ -164,7 +164,7 @@ def ranks2(tmp_path_factory, plain):
         ("resume", "scan", (dict(SCAN, save_path=str(tmp / "resume.pkl"),
                                  resume=True),)),
         ("oom", "scan_oom_on", (1, dict(SCAN, max_bucket=3))),
-        ("pipelined", "scan_pipelined", (dict(SCAN, max_bucket=1),)),
+        ("chunks of one", "scan", (dict(SCAN, max_bucket=1),)),
     ]
     outs = launch(_torch_ranks.run_all, 2, args=(calls,), device="cpu",
                   timeout_s=JOIN_S)
@@ -339,10 +339,9 @@ def test_padding_is_dropped(case, plain, ranks2, ranks4):
         _assert_bit_equal(out[name], plain[name])
 
 
-@pytest.mark.parametrize("case", ["scan", "pipelined"])
+@pytest.mark.parametrize("case", ["scan", "chunks of one"])
 def test_scan_returns_the_whole_list_on_every_rank(case, plain, ranks2):
-    """Chunks of 2 configurations, and (``MFCD_PIPELINE=1``) chunks of one
-    dispatched on the worker thread while the caller gathers."""
+    """Chunks of 2 configurations, and chunks of one."""
     for out in ranks2[0]:
         assert [e["params"] for e in out[case]] == \
             [e["params"] for e in plain["scan"]]
