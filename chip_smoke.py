@@ -118,7 +118,7 @@ Phases, each of which raises on failure (nothing is caught and continued):
    smallest C (a second wave): against its plain version, bit-equal at
    every C from the smallest that the card schedules, a forced C below it
    (and packed) raising ``ValueError``; ms an epoch, us a step, the bound;
-   and at d = 8, n = m = 7,168, R = 2, where only C = 16 fits: against its
+   and at d = 8, n = m = 10,000, R = 2, where only C = 16 fits: against its
    plain version, two launches bit-equal, C = 8 refused;
    (b) ``mfcd_tpu_torch.scripts.scale_demo`` at n = m = 10,000, p = 0.02,
    30 epochs (two ``run_config`` calls): K1 the trainer, 30 launches a
@@ -303,7 +303,7 @@ MESH_TIMEOUT_S = 600
 # scale demo, the trainer check at the new shape, weak scaling's ranks and
 # the forward probe's bound (the card's and the CPU's sigmoid round apart).
 SCALE_ROWS = (5000, 10_000)
-D8_ROWS = 7168   # d = 8, bs = 64: JAX admits it, K1 fits only at C = 16
+D8_ROWS = 10_000   # d = 8, bs = 64: K1 fits only at C = 16
 SCALE_BATCHES = 64
 SCALE_DEMO = dict(n=10_000, p=0.02, epochs=30)
 TRAINER_CHECK = dict(n=5000, m=5000, d=2, p=0.02, s=5.0, lr=1e-3,
@@ -2279,9 +2279,8 @@ def scale_kernel_phase(dev, smi):
                 f"us/step), plain {plain_ms:.2f} ms, bound {bound:.6f} ms "
                 f"({by}); bit-equal at C={shapes}, C={kernels.PACKED} "
                 f"(packed) and C<{floor} refused; {smi}")
-    # d = 8 past C = 8's reach: the gate's floor is C = 16 (JAX's kernel
-    # admits the shape).  Against the plain version, two launches
-    # bit-equal, C = 8 refused.
+    # d = 8 past C = 8's reach: the gate's floor is C = 16.  Against the
+    # plain version, two launches bit-equal, C = 8 refused.
     n, d8, r = D8_ROWS, 8, 2
     floor = kernels.min_cluster(n, n, d8, bs)
     if floor != 16:

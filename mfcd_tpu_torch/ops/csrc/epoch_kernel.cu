@@ -16,8 +16,8 @@
 // What bounds it.  Neither bytes nor FLOPs: an epoch is a chain of
 // ceil(count / bs) dependent steps (1,250 at the canonical n = m = 1000,
 // d = 2, bs = 64) over state kept in shared memory.  At small R (4 to 8
-// runs on 132 SMs) the step's latency bounds it: the batch phase (gathers,
-// sigmoid, links), two barriers, and the dense Adam over (n + m) * d
+// runs on 132 SMs) the step's latency bounds it: the batch phase (row
+// reads, sigmoid, links), the barriers, and the dense Adam over (n + m) * d
 // elements, whose IEEE divisions and square root each branch to a slow path
 // and so issue one element after another: about 2 us on one H100 SM.  At large
 // R (hundreds of runs, one parameter_scan_fast chunk) the SMs' issue rate
@@ -39,8 +39,14 @@
 //   atomics, no gradient plane, no serial scatter, and any bs.
 // - Small R, where the card holds R clusters of c > 1 at once: a run split
 //   over c CTAs, each holding 1/c of the rows, so each CTA issues 1/c of
-//   Adam.  Every CTA computes the whole batch phase, gathering rows from
-//   their owners' shared memory (DSMEM); one cluster barrier a step.
+//   Adam.  Every CTA computes the whole batch phase from a buffer of the
+//   step's rows that their owners pushed into every CTA's shared memory
+//   (st.async) after the previous step's Adam; the step waits on the
+//   buffer's mbarrier, which counts the pushed bytes, not on a cluster
+//   barrier, whose arrive follows the batch phase and whose wait, before
+//   the pushes, overlaps Adam.  Where the whole batch's rows do not fit
+//   beside a CTA's share, the buffer holds as many batch rows as do, and
+//   a step pushes and reads its batch in rounds of that many.
 // - Up to one run per SM (c = 1): one 512-thread CTA per run, in one wave.
 // - Large R, more runs than SMs (packed): 256 threads and at most 85
 //   registers a thread, so three runs share an SM and its issue slots.

@@ -100,11 +100,11 @@ def split_smem_bytes(n: int, m: int, d: int, batch_size: int,
     shape ``cluster`` (mirrors the .cu source): K1's
     :func:`epoch_smem_bytes`, plus, for an ablated variant, its term
     planes: a third loss term per batch row by step parity and the alive
-    partial sums.  P2 is ``full`` over its tables' rows: call it at
+    partial sums (at C > 1 K1's pushed buffer leaves room for them).  P2 is ``full`` over its tables' rows: call it at
     ``FACTORED_ROWS``."""
     extra = (0 if kernel in ("full", FACTORED)
              else 4 * (2 * batch_size + WARP_SLOTS))
-    return epoch_smem_bytes(n, m, d, batch_size, cluster) + extra
+    return epoch_smem_bytes(n, m, d, batch_size, cluster, extra) + extra
 
 
 def split_min_cluster(n: int, m: int, d: int, batch_size: int,

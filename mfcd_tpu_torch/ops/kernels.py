@@ -40,8 +40,12 @@ import torch
 
 from mfcd_tpu_torch.models.mf import gather_rows
 from mfcd_tpu_torch.ops import _build
+from mfcd_tpu_torch.utils import observability as obs
 
 EPOCH_LAUNCHES = 0          # kernel launches by train_epoch, nowhere else
+# The open call's counter of K1 launches at C > 1, where the rows' owners
+# push each step's rows into every block of the cluster.
+PUSH_LAUNCHES = "k1.push_launches"
 SMEM_PER_BLOCK = 232_448    # bytes of shared memory one Hopper block may use
 # Launch shapes: C in CLUSTER_SIZES, a run on a cluster of C blocks of 512
 # threads (C = 1: one block, no cluster), tried largest first; or PACKED, a
@@ -72,21 +76,44 @@ class EpochState(NamedTuple):
     nu_v: torch.Tensor  # [R, d, m]
 
 
+def _base_smem_bytes(n: int, m: int, d: int, batch_size: int,
+                     cluster: int) -> int:
+    """One block's shared memory without the pushed rows' buffer (mirrors
+    ``base_smem_bytes`` in the .cu source)."""
+    c = max(cluster, 1)
+    rows = -(-n // c) + -(-m // c)
+    return 8 * rows + (8 if c > 1 else 0) + 4 * (
+        3 * rows * d + batch_size * (14 + 2 * d) + 2)
+
+
+def pushed_rows(n: int, m: int, d: int, batch_size: int, cluster: int,
+                extra: int = 0) -> int:
+    """At C > 1, the batch rows whose operand rows (3 * d floats each) one
+    block's buffer holds at once: the whole batch where it fits beside the
+    rest of the block and ``extra`` more bytes, else as many rows as fit
+    (at least one), and a step takes its batch in rounds of that many rows;
+    0 at C = 1 and PACKED (mirrors ``pushed_rows`` in the .cu source)."""
+    if cluster <= 1:
+        return 0
+    free = SMEM_PER_BLOCK - _base_smem_bytes(n, m, d, batch_size,
+                                             cluster) - extra
+    return max(1, min(batch_size, free // (12 * d)))
+
+
 def epoch_smem_bytes(n: int, m: int, d: int, batch_size: int,
-                     cluster: int = 1) -> int:
+                     cluster: int = 1, extra: int = 0) -> int:
     """Shared memory of one kernel block at launch shape ``cluster``
     (mirrors ``epoch_smem_bytes`` in the .cu source; PACKED counts as
     C = 1).  Over the block's share of rows, ceil(n / C) + ceil(m / C): a
-    stamped list head (8 bytes), and the state (twice when C > 1,
-    double-buffered) and its two moments, d floats each; per batch row
-    three list links, three entry rows, three touched-row slots, 2 * d
-    contributions, two (logit, z) pairs and a loss sum; two touched-row
-    counts."""
-    c = max(cluster, 1)
-    rows = -(-n // c) + -(-m // c)
-    planes = 4 if c > 1 else 3
-    return 8 * rows + 4 * (planes * rows * d + batch_size * (14 + 2 * d)
-                           + 2)
+    stamped list head (8 bytes), and the state and its two moments, d
+    floats each; per batch row three list links, three entry rows, three
+    touched-row slots, 2 * d contributions, two (logit, z) pairs and a
+    loss sum; two touched-row counts.  When C > 1 also the buffer the
+    rows' owners push each step's rows into, 3 * d floats for each of
+    :func:`pushed_rows` batch rows (``extra`` as there), and its mbarrier
+    (8 bytes)."""
+    return (_base_smem_bytes(n, m, d, batch_size, cluster)
+            + 12 * d * pushed_rows(n, m, d, batch_size, cluster, extra))
 
 
 def min_cluster(n: int, m: int, d: int, batch_size: int) -> Optional[int]:
@@ -311,6 +338,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11
              + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p])
 
 
+def _on(device: torch.device) -> bool:
+    """True for a CUDA device, False for the CPU; raises for any other."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"train_epoch: unsupported device {device}")
+
+
 def _library():
     lib = _build.bind("epoch_kernel.cu", "mfcd_train_epoch", _ARGTYPES)
     occupancy = lib.mfcd_epoch_occupancy
@@ -404,11 +440,9 @@ def _train_epoch(state: EpochState, stream, lr, wd, step0, count,
     included, raises ``ValueError`` before any launch."""
     global EPOCH_LAUNCHES
     dev = state.u_t.device
-    if dev.type == "cpu":
+    if not _on(dev):
         return train_epoch_reference(state, stream, lr, wd, step0, count,
                                      pack, b1, b2, eps)
-    if dev.type != "cuda":
-        raise ValueError(f"train_epoch: unsupported device {dev}")
 
     mode, bits_n, bits_m, bits_z, denom = pack
     if mode not in _MODES:
@@ -449,7 +483,9 @@ def _train_epoch(state: EpochState, stream, lr, wd, step0, count,
         lr.data_ptr(), wd.data_ptr(), step0.data_ptr(), count.data_ptr(),
         loss.data_ptr(), r, n, m, d, num_batches, bs, _MODES[mode], bits_n,
         bits_m, bits_z, denom, b1f, omb1, b2f, omb2, float(eps), log_b1,
-        log_b2, cluster, torch.cuda.current_stream(dev).cuda_stream)
+        log_b2, cluster, _build.stream_ptr(dev))
     _build.raise_on(lib, err, "epoch kernel")
     EPOCH_LAUNCHES += 1
+    if cluster > 1:
+        obs.count(PUSH_LAUNCHES, 1)
     return state, loss

@@ -5,12 +5,13 @@
 
 Builds the other ``epoch_kernel.cu`` (it must keep this checkout's C
 interface, ``mfcd_train_epoch``) with the port's nvcc flags beside this
-checkout's, and times one epoch of each at R = 4, 8, 120 and the large R
-that ``parameter_scan_fast`` chunks the reference grid into (n = m =
-1000, d = 2, bs = 64, 1,250 batches, pack "full"), both at the launch
-shape this checkout's K1 chooses: ``profile_kernel_split.median_ms``
-windows in turns (this, other, other, this, twice), the median of each
-side's four.  Checks that both give the same bits.  Prints a line per R
+checkout's, and times one epoch of each at the benchmark cells' R (3 in
+the sampler sweep, 5 in the scans, 45 in the grid's second chunk), at
+R = 4, 8, 120 and at the large R that ``parameter_scan_fast`` chunks the
+reference grid into (n = m = 1000, d = 2, bs = 64, 1,250 batches, pack
+"full"), both at the launch shape this checkout's K1 chooses:
+``profile_kernel_split.median_ms`` windows in turns (this, other, other,
+this, twice), the median of each side's four.  Checks that both give the same bits.  Prints a line per R
 on stderr and, as its last line, one JSON object with each R's medians,
 their ratio (this / other), every reading and the card's name and power
 limit.  Exits non-zero without a card.
@@ -129,7 +130,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     card = card_line()
     out = []
-    for r in (4, 8, 120, large_r()):
+    for r in (3, 4, 5, 8, 45, 120, large_r()):
         row = compare(this, other, r, device)
         out.append(row)
         print(f"R={r:4d} C={row['cluster']:2d}: this {row['this_ms']:.4f} ms,"

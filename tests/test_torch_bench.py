@@ -160,7 +160,7 @@ def test_run_bucket_use_kernel():
     """``True`` where the kernel does not fit raises before any work;
     ``True`` on the CPU trains with the kernel trainer's plain epoch, which
     agrees with the eager trainer (``False``) as in ``run_config``."""
-    wide = RunConfig(n=50000, m=50000, d=2, p=1e-6, num_epochs=1)
+    wide = RunConfig(n=60000, m=60000, d=2, p=1e-6, num_epochs=1)
     with pytest.raises(ValueError, match="does not fit"):
         run_bucket(wide, ROWS[:1], [0], use_kernel=True, device="cpu")
     cfg = RunConfig(**dict(SMALL, K=4, soft_label=True))

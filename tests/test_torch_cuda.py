@@ -195,10 +195,12 @@ def test_kernel_matches_plain_version_at_every_r(runs):
 
 def _edge_rows(n, m, c):
     """Rows drawn from the first and last row of every block's share at
-    cluster size c (shares of ceil(n / c) U and ceil(m / c) V rows)."""
+    cluster size c (rows equal to the block's rank modulo c: the first c
+    rows and the last c), and from the edges of c contiguous ranges of
+    ceil(n / c) U and ceil(m / c) V rows."""
     edges = lambda k: np.unique(np.clip(np.concatenate(
         [np.arange(0, k, -(-k // c)), np.arange(0, k, -(-k // c)) - 1,
-         [k - 1]]), 0, k - 1))
+         np.arange(c), k - 1 - np.arange(c)]), 0, k - 1))
 
     def rows(g, shape):
         eu, ev = edges(n), edges(m)
@@ -313,6 +315,70 @@ def test_kernel_matches_plain_version_adversarial_stream():
     state, args, pack = _inputs(15, 1000, 1000, 2, 64, 16, [1024, 1000],
                                 [1e-3, 1e-2], "full", dev, rows=rows)
     _compare(state, args, pack, dev)
+
+
+def _same_rows(g, shape):
+    """Every batch row the same (u, i, j): one owner pushes all of them."""
+    return np.full(shape, 517), np.full(shape, 3), np.full(shape, 998)
+
+
+# The push path (C > 1): (n, d, bs, batches, counts, rows); counts leave a
+# masked tail in the last executed batch.  At n = 10,000, bs = 2,048 no
+# block holds the whole batch's rows: C = 8 pushes them in rounds of 207
+# rows, C = 16 of 1,874 (d = 2) or 377 (d = 3), so each step reuses the
+# buffer several times.
+PUSH_CASES = {
+    "canonical": (1000, 2, 64, 16, [1024, 1000, 961], None),
+    "idle-run": (1000, 2, 64, 16, [1024, 0, 65], None),
+    "same-row": (1000, 2, 64, 16, [1024, 999, 700], _same_rows),
+    "bs1024": (1000, 2, 1024, 4, [4096, 3001, 2048], None),
+    "d8": (1000, 8, 64, 16, [1024, 1000, 777], None),
+    "d3-edges": (1000, 3, 64, 8, [512, 450, 65], _edge_rows(1000, 1000, 16)),
+    "bs2048-rounds": (10_000, 2, 2048, 4, [8192, 3001, 2053], None),
+    "d3-rounds": (10_000, 3, 2048, 4, [8192, 2049, 700], None),
+    "same-row-rounds": (10_000, 2, 2048, 4, [8192, 4000, 2100], _same_rows),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PUSH_CASES))
+def test_push_path_is_bit_equal_at_every_launch_shape(case):
+    # Each step's rows pushed by their owners into every block of the
+    # cluster: against the plain version, and bit-equal at every C the card
+    # schedules (the blocks' C > 1), and at C = 1 and packed where those
+    # fit.  A block's pushes into a peer wait only on the cluster barrier,
+    # whose arrive, after the peer's reads of its buffer, is relaxed: it
+    # orders no memory.  The reads are done by then because every value
+    # they load feeds the logit and the stores before the arrive (the
+    # built code issues no fence there).  A push that overtook a read
+    # would change a row of some step, and so the bits here; the rounds
+    # cases reuse the buffer within a step too.
+    dev = _card()
+    n, d, bs, nb, counts, rows = PUSH_CASES[case]
+    r = len(counts)
+    state, args, pack = _inputs(51, n, n, d, bs, nb, counts,
+                                list(np.geomspace(1e-3, 1e-2, r)), "full",
+                                dev, rows=rows)
+    floor = K.min_cluster(n, n, d, bs)
+    shapes = [c for c in K.CLUSTER_SIZES if c > 1 and c >= floor
+              and K.epoch_smem_bytes(n, n, d, bs, c) <= K.SMEM_PER_BLOCK
+              and K.epoch_occupancy(n, n, d, bs, c, dev.index or 0)[1] > 0]
+    assert shapes
+    if bs <= 1024:
+        got = _flat(_compare(state, args, pack, dev))
+    else:
+        # K1 sums the epoch's loss over the batch's rows one after another
+        # in float32: over 2,048 rows it reads up to 2.3e-5 (relative) from
+        # the plain version's masked means, in the gathered layout's K1 as
+        # here (the same bits).  The state is held to the plain version,
+        # the loss to every launch shape's.
+        state_only = lambda f: lambda *a, **k: (f(*a, **k)[0],)
+        _compare(state, args, pack, dev, kernel=state_only(K.train_epoch),
+                 plain=state_only(K.train_epoch_reference))
+        got = _k1(state, args, pack, dev, shapes[0])
+    for c in shapes + ([1, K.PACKED] if floor == 1 else []):
+        again = _k1(state, args, pack, dev, c)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), c
 
 
 @pytest.mark.cuda
@@ -1188,12 +1254,13 @@ def test_kernel_trainer_epoch_loop_has_no_host_sync(monkeypatch):
 
 @pytest.mark.cuda
 def test_kernel_at_d8_takes_c16():
-    # n = m = 7,168, d = 8, bs = 64: JAX's kernel admits it, and the block
-    # fits only at C = 16, the gate's new floor.  Against the plain version
-    # (its index_add_ adds with atomics on the card: the stated bound), and
-    # two launches bit-equal.
+    # n = m = 10,000, d = 8, bs = 64: the block fits only at C = 16, the
+    # gate's largest cluster (JAX's n = 7,168 fits at C = 8 since the split
+    # block holds the state once).  Against the plain version (its
+    # index_add_ adds with atomics on the card: the stated bound), and two
+    # launches bit-equal.
     dev = _card()
-    n, d = 7168, 8
+    n, d = 10_000, 8
     assert K.min_cluster(n, n, d, 64) == 16
     assert K.epoch_kernel_supported(n, n, d, 64)
     state, args, pack = _inputs(31, n, n, d, 64, 16, [1024, 1000],

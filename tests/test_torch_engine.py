@@ -113,7 +113,7 @@ def test_kernel_trainer_path_matches_eager_path_on_cpu():
 
 
 def test_explicit_kernel_at_a_shape_that_does_not_fit_raises():
-    cfg = tconfig.RunConfig(n=50000, m=50000, d=2, p=1e-6, num_epochs=1)
+    cfg = tconfig.RunConfig(n=60000, m=60000, d=2, p=1e-6, num_epochs=1)
     with pytest.raises(ValueError, match="does not fit"):
         tengine.run_config(cfg, use_kernel=True, device="cpu")
     assert not tengine.default_use_kernel(cfg, "cuda")

@@ -265,14 +265,16 @@ def test_wrappers_reject_other_devices():
 def test_smem_formulas_at_the_profiler_shape(kernel, cluster):
     # K1's block at the launch shape (P2's over 1,024 rows), plus, for an
     # ablated variant, a third loss term per batch row by step parity and
-    # 16 alive partial sums.
+    # 16 alive partial sums.  Split, K1's block holds the pushed rows
+    # (3 * d floats a batch row) and their mbarrier.
     rows = (KS.FACTORED_ROWS if kernel == KS.FACTORED else 1000)
     extra = 0 if kernel in ("full", KS.FACTORED) else 4 * (2 * 64 + 16)
     got = KS.split_smem_bytes(rows, rows, 2, 64, cluster, kernel)
     assert got == K.epoch_smem_bytes(rows, rows, 2, 64, cluster) + extra
     share = 2 * -(-rows // max(cluster, 1))
-    planes = 4 if cluster > 1 else 3
-    assert got == 8 * share + 4 * (planes * share * 2 + 64 * 18 + 2) + extra
+    pushed = 8 + 4 * 3 * 64 * 2 if cluster > 1 else 0
+    assert got == (8 * share + pushed + 4 * (3 * share * 2 + 64 * 18 + 2)
+                   + extra)
     if (kernel, cluster) == ("full", 1):  # K1's canonical block
         assert got == 68_616
 

@@ -181,8 +181,9 @@ def test_epoch_kernel_supported_canonical():
     assert K.epoch_kernel_supported(1000, 1000, 2, 64)
     assert pallas_epoch_supported(1000, 1000, 2, 1250, 64)
     # Past the reach of C = 16, the gate's largest cluster (n = m up to
-    # 45,552 fit there: tests/test_torch_scale.py).
-    assert not K.epoch_kernel_supported(50_000, 50_000, 2, 64)
+    # 56,944 fit there: tests/test_torch_scale.py).
+    assert K.epoch_kernel_supported(45_552, 45_552, 2, 64)
+    assert not K.epoch_kernel_supported(60_000, 60_000, 2, 64)
     # Any batch size whose shared memory fits (no one-row-per-thread cap).
     assert K.epoch_kernel_supported(100, 100, 2, 1024)
     assert K.epoch_kernel_supported(1000, 1000, 2, 2048)
@@ -192,16 +193,26 @@ def test_epoch_kernel_supported_canonical():
 @pytest.mark.parametrize("n,m,d,bs", [(1000, 1000, 2, 64), (20, 25, 3, 32),
                                       (3000, 4000, 4, 1024)])
 def test_epoch_smem_at_every_cluster_size(n, m, d, bs):
-    # C > 1: each block holds ceil(n / C) + ceil(m / C) rows, with the
-    # state twice (double-buffered); a shape that fits at C = 1 fits at
-    # every C the chooser tries.  The packed block is the C = 1 block.
+    # C > 1: each block holds ceil(n / C) + ceil(m / C) rows, the state
+    # once (Adam writes it in place), and the buffer the rows' owners push
+    # each step's rows into, 3 * d floats a batch row for the whole batch
+    # or as many rows as fit (one at least), with its 8-byte mbarrier: at
+    # most that buffer above the C = 1 block.  The packed block is the
+    # C = 1 block.
     for c in K.CLUSTER_SIZES + (K.PACKED,):
         rows = -(-n // max(c, 1)) + -(-m // max(c, 1))
-        assert K.epoch_smem_bytes(n, m, d, bs, c) == 8 * rows + 4 * (
-            (4 if c > 1 else 3) * rows * d + bs * (14 + 2 * d) + 2)
+        rest = 8 * rows + 4 * (3 * rows * d + bs * (14 + 2 * d) + 2)
+        held = (min(bs, max(1, (232_448 - rest - 8) // (12 * d)))
+                if c > 1 else 0)
+        pushed = 8 + 12 * d * held if c > 1 else 0
+        assert K.pushed_rows(n, m, d, bs, c) == held
+        assert K.epoch_smem_bytes(n, m, d, bs, c) == rest + pushed
         assert (K.epoch_smem_bytes(n, m, d, bs, c)
-                <= K.epoch_smem_bytes(n, m, d, bs))
-    assert K.epoch_smem_bytes(1000, 1000, 2, 64, 16) == 9_656
+                <= K.epoch_smem_bytes(n, m, d, bs) + pushed)
+    assert K.epoch_smem_bytes(1000, 1000, 2, 64, 16) == 10_192
+    # At the cells' shape every C > 1 block is smaller than the one before.
+    at = [K.epoch_smem_bytes(1000, 1000, 2, 64, c) for c in (1, 2, 4, 8, 16)]
+    assert at == sorted(at, reverse=True)
 
 
 # Runs resident at once, by cluster size (clusters of C blocks of 512
@@ -252,6 +263,106 @@ def test_cluster_size_is_printed_once_per_choice(monkeypatch, capsys):
     assert K.cluster_size(310, 1000, 1000, 2, 64, "cuda:0") == K.PACKED
     assert ("310 runs x 1 block per run of 256 threads"
             in capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("n,m,d,bs", [(20, 20, 2, 2560), (7071, 7071, 2, 64),
+                                      (10_000, 10_000, 2, 2048),
+                                      (10_000, 10_000, 3, 2048),
+                                      (3000, 4000, 4, 1024),
+                                      (300, 300, 8, 1024)])
+def test_a_block_fits_at_every_c_from_the_floor(n, m, d, bs, monkeypatch):
+    # A larger C takes rows off the block and leaves the pushed buffer more
+    # room, so every C from the smallest that fits up fits too, with the
+    # same or more batch rows a round; the chooser asks the card about
+    # those C alone.  Each shape pushes its batch in rounds at some C.
+    floor = K.min_cluster(n, m, d, bs)
+    sizes = sorted(c for c in K.CLUSTER_SIZES if c >= floor)
+    assert any(0 < K.pushed_rows(n, m, d, bs, c) < bs for c in sizes)
+    held = [K.pushed_rows(n, m, d, bs, c) for c in sizes if c > 1]
+    assert held == sorted(held)
+    assert all(K.epoch_smem_bytes(n, m, d, bs, c) <= K.SMEM_PER_BLOCK
+               for c in sizes)
+    asked = []
+
+    def occupancy(n_, m_, d_, bs_, c, idx):
+        asked.append(c)
+        return 1, _OCCUPANCY["h100-like"].get(c, 0)
+
+    monkeypatch.setattr(K, "epoch_occupancy", occupancy)
+    monkeypatch.setattr(K, "_printed_clusters", set())
+    assert K.cluster_size(4, n, m, d, bs, "cuda:0") == 16
+    assert min(asked) >= floor
+
+
+class _FakeK1:
+    """Stands in for the built ``epoch_kernel.cu`` on CPU tensors: records
+    each launch's shape and writes a zero loss."""
+
+    def __init__(self, monkeypatch, chosen=None):
+        self.clusters = []
+        monkeypatch.setattr(K, "_on", lambda dev: True)
+        monkeypatch.setattr(K, "_library", lambda: self)
+        monkeypatch.setattr(K._build, "stream_ptr", lambda dev: 0)
+        if chosen is not None:
+            monkeypatch.setattr(K, "cluster_size",
+                                lambda *a, **k: chosen)
+
+    def mfcd_train_epoch(self, *args):
+        import ctypes
+
+        loss, r = args[14], args[15]
+        ctypes.memset(loss, 0, 4 * r)
+        self.clusters.append(args[-2])
+        return 0
+
+
+def _epoch_args():
+    state, rows, sc = epoch_inputs(2, [70, 100], [1e-2, 3e-2])
+    stream, pack = packed("full", *rows)
+    args = (tuple(torch.from_numpy(a.copy()) for a in stream),
+            *(torch.from_numpy(sc[k]) for k in ("lr", "wd", "step0",
+                                                "count")))
+    return epoch_state_from_jax(*state), args, pack
+
+
+@pytest.mark.parametrize("cluster", [None, K.PACKED, 1, 2, 4, 8, 16])
+def test_push_launches_count_the_launches_at_c_above_1(cluster,
+                                                       monkeypatch):
+    # One count a launch at C > 1, the push path, none at C = 1 or packed;
+    # with cluster None the chooser's C (here 16) counts.
+    from mfcd_tpu_torch.utils import observability as obs
+
+    fake = _FakeK1(monkeypatch, chosen=16)
+    state, args, pack = _epoch_args()
+    obs.reset()
+    with obs.call("train_epoch", "cpu"):
+        for _ in range(3):
+            K._train_epoch(state, *args, pack=pack, cluster=cluster)
+    c = 16 if cluster is None else cluster
+    assert fake.clusters == [c] * 3
+    counters = obs.calls()[-1]["counters"]
+    assert counters.get(K.PUSH_LAUNCHES, 0) == (3 if c > 1 else 0)
+    # Outside a call nothing is counted, and nothing raises.
+    K._train_epoch(state, *args, pack=pack, cluster=cluster)
+
+
+@pytest.mark.parametrize("chosen", [16, K.PACKED])
+def test_push_launches_read_one_a_scan_epoch(chosen, monkeypatch):
+    # A run through the kernel trainer launches K1 once an epoch: at C = 16
+    # the call's counter reads the epoch count; at PACKED (the grid's large
+    # chunk) it stays absent.
+    from mfcd_tpu_torch.core.config import RunConfig
+    from mfcd_tpu_torch.sweep.engine import run_config
+    from mfcd_tpu_torch.utils import observability as obs
+
+    fake = _FakeK1(monkeypatch, chosen=chosen)
+    obs.reset()
+    cfg = RunConfig(n=24, m=28, d=2, p=0.4, s=4.0, num_epochs=3, reps=2)
+    with obs.call("parameter_scan", "cpu"):
+        run_config(cfg, use_kernel=True, device="cpu")
+    assert fake.clusters == [chosen] * 3
+    counters = obs.calls()[-1]["counters"]
+    assert counters.get(K.PUSH_LAUNCHES) == (3 if chosen == 16 else None)
 
 
 def _loop_sum(rows, idx, vals):

@@ -33,16 +33,31 @@ from test_torch_kernels import _OCCUPANCY
 torch.set_num_threads(1)
 
 # The gate's grid: JAX's edge at d = 2, bs = 64 (n = m = 7,168), the port's
-# old C = 1 edge (3,559), scale_demo's 10,000, and their neighbours.
-GRID_ROWS = (20, 1000, 3559, 3560, 5000, 7168, 7169, 10_000)
-GRID_D = (2, 4, 8)
-GRID_BS = (32, 64, 1024)
+# old C = 1 edge (3,559), scale_demo's 10,000, and their neighbours; the
+# small tables JAX admits at bs = 2,048.
+GRID_ROWS = (20, 100, 300, 1000, 3559, 3560, 5000, 7168, 7169, 10_000)
+GRID_D = (2, 4, 8, 16)
+GRID_BS = (32, 64, 1024, 2048)
 
 
 def _smem(n, m, d, bs, c):
     """One block's shared memory at cluster size c, written out: per row of
-    the share a list head and (4 planes split, 3 not) d floats; per batch
-    row 14 + 2d words; two counts."""
+    the share a list head and 3 planes of d floats; per batch row 14 + 2d
+    words; two counts.  Split, an 8-byte mbarrier and the pushed rows, 3d
+    floats for each of as many batch rows as fit in the rest of the block,
+    the whole batch at most and one at least."""
+    rows = -(-n // c) + -(-m // c)
+    rest = 8 * rows + 4 * (3 * rows * d + bs * (14 + 2 * d) + 2)
+    if c == 1:
+        return rest
+    held = min(bs, max(1, (232_448 - rest - 8) // (12 * d)))
+    return rest + 8 + 12 * d * held
+
+
+def _smem_gathered(n, m, d, bs, c):
+    """The same under the earlier split layout, whose batch phase gathered
+    rows from their owners: the state double-buffered (4 planes split), no
+    pushed rows."""
     rows = -(-n // c) + -(-m // c)
     return 8 * rows + 4 * ((4 if c > 1 else 3) * rows * d
                            + bs * (14 + 2 * d) + 2)
@@ -54,21 +69,25 @@ def _grid():
 
 
 def test_gate_admits_what_jax_admits():
-    # Every shape JAX's VMEM check admits, the port admits, the d = 8,
-    # bs <= 64 shapes past C = 8's reach included: the gate's basis takes
-    # C = 16, where their block fits.  num_batches only matters to JAX
-    # under MFCD_PALLAS_MAX_ROWS.
+    # Every shape JAX's VMEM check admits, the port admits, but where the
+    # batch's scratch alone (14 + 2d words a batch row) outgrows a block,
+    # which no C shrinks: d = 8 and 16 at bs = 2,048.  The d >= 8, bs <= 64
+    # shapes past C = 8's reach take C = 16, where their block fits: at
+    # d = 8 only n = m = 10,000 at bs = 32.  num_batches only matters to
+    # JAX under MFCD_PALLAS_MAX_ROWS.
     gaps, at16 = [], []
     for n, m, d, bs in _grid():
         nb = max(1, int(0.8 * n * m * 0.02 / 2) // bs)
         if pallas_epoch_supported(n, m, d, nb, bs):
             if not K.epoch_kernel_supported(n, m, d, bs):
                 gaps.append((n, m, d, bs))
+                assert 4 * bs * (14 + 2 * d) > 232_448, (n, m, d, bs)
             elif K.min_cluster(n, m, d, bs) == 16:
                 at16.append((n, m, d, bs))
-                assert d == 8 and bs <= 64, (n, m, d, bs)
-    assert gaps == []
-    assert len(at16) == 18
+                assert d >= 8 and bs <= 64, (n, m, d, bs)
+    assert gaps == [(n, m, d, 2048) for d in (8, 16) for n in (20, 100)
+                    for m in (20, 100)]
+    assert [s for s in at16 if s[2] == 8] == [(10_000, 10_000, 8, 32)]
     for d in (2, 4):
         for n in (3559, 3560, 5000, 7168):
             assert pallas_epoch_supported(n, n, d, 1, 64)
@@ -80,7 +99,9 @@ def test_gate_admits_what_jax_admits():
 @pytest.mark.parametrize("d", GRID_D)
 @pytest.mark.parametrize("bs", GRID_BS)
 def test_min_cluster_is_the_smem_arithmetic(d, bs):
-    for n in GRID_ROWS + (22_776, 22_777, 30_000, 45_552, 45_553):
+    for n in GRID_ROWS + (8409, 8640, 8641, 13_216, 16_816, 17_280, 17_281,
+                          22_776, 22_777, 28_472, 28_473, 30_000, 45_552,
+                          45_553, 56_944, 56_945):
         for m in (20, n):
             fits = [c for c in (1, 2, 4, 8, 16)
                     if _smem(n, m, d, bs, c) <= 232_448]
@@ -93,13 +114,38 @@ def test_min_cluster_is_the_smem_arithmetic(d, bs):
 
 
 def test_min_cluster_at_d2_bs64():
-    # The issue's table: the smallest C that fits, n = m, d = 2, bs = 64.
-    for n, c in ((1000, 1), (3559, 1), (3560, 2), (5000, 2), (7168, 4),
-                 (10_000, 4), (22_776, 8), (22_777, 16), (30_000, 16),
-                 (45_552, 16), (45_553, None)):
+    # The smallest C that fits, n = m, d = 2, bs = 64.  The split block
+    # holds the state once and the pushed rows, the whole batch's up to
+    # n = 7,070 at C = 2, 14,140 at C = 4 and 28,280 at C = 8, beyond that
+    # fewer, in rounds: C = 2 reaches 7,118, C = 4 14,236, C = 8 28,472 and
+    # C = 16 56,944.
+    for n, c in ((1000, 1), (3559, 1), (3560, 2), (5000, 2), (7070, 2),
+                 (7118, 2), (7119, 4), (7168, 4), (10_000, 4), (14_236, 4),
+                 (14_237, 8), (22_777, 8), (28_472, 8), (28_473, 16),
+                 (30_000, 16), (45_552, 16), (45_553, 16), (56_944, 16),
+                 (56_945, None)):
         assert K.min_cluster(n, n, 2, 64) == c, n
-    assert K.epoch_smem_bytes(10_000, 10_000, 2, 64, 2) == 404_616
-    assert K.epoch_smem_bytes(10_000, 10_000, 2, 64, 4) == 204_616
+    assert K.pushed_rows(7070, 7070, 2, 64, 2) == 64
+    assert K.pushed_rows(7071, 7071, 2, 64, 2) == 63
+    assert K.pushed_rows(7118, 7118, 2, 64, 2) == 2
+    assert K.epoch_smem_bytes(10_000, 10_000, 2, 64, 2) == 324_648
+    assert K.epoch_smem_bytes(10_000, 10_000, 2, 64, 4) == 166_160
+
+
+@pytest.mark.parametrize("d", (1, 2, 3, 4, 7, 8, 16))
+@pytest.mark.parametrize("bs", (1, 32, 64, 256, 1024, 2048))
+def test_gate_admits_what_the_gathered_layout_admitted(d, bs):
+    # Every shape the gathered layout's gate admitted is admitted, at the
+    # same or a smaller C: where the whole batch's pushed rows do not fit
+    # beside the share, the block holds as many as do and a step pushes its
+    # batch in rounds.
+    for n in range(1, 60_000, 173):
+        for m in (20, n):
+            was = [c for c in (1, 2, 4, 8, 16)
+                   if _smem_gathered(n, m, d, bs, c) <= 232_448]
+            now = K.min_cluster(n, m, d, bs)
+            if was:
+                assert now is not None and now <= was[0], (n, m)
 
 
 @pytest.mark.parametrize("card", list(_OCCUPANCY))
@@ -185,7 +231,7 @@ def test_cluster_size_takes_the_floor(monkeypatch, capsys):
     assert "33 runs resident, 2 waves" in capsys.readouterr().out
     assert min(asked) >= 4
     with pytest.raises(ValueError, match="even at C = 16"):
-        K.cluster_size(1, 45_553, 45_553, 2, 64, "cuda:0")
+        K.cluster_size(1, 56_945, 56_945, 2, 64, "cuda:0")
     # A floor of 16 on a card that holds no 16-block cluster raises, with
     # the shape and C = 16 in the message: no autograd, no smaller C.
     with pytest.raises(ValueError, match=r"n=30000, m=30000, d=2, bs=64, "
@@ -196,7 +242,7 @@ def test_cluster_size_takes_the_floor(monkeypatch, capsys):
                           floor=8) == 8
     monkeypatch.setattr(K, "_printed_clusters", set())
     table = _OCCUPANCY["h100-like"]  # the occupancy stub reads it
-    assert K.cluster_size(1, 7168, 7168, 8, 64, "cuda:0") == 16
+    assert K.cluster_size(1, 10_000, 10_000, 8, 64, "cuda:0") == 16
     assert "smallest C 16" in capsys.readouterr().out
 
 
@@ -212,7 +258,7 @@ def test_engine_picks_the_kernel_from_the_shape(capsys, monkeypatch):
         tconfig.RunConfig(n=30_000, m=30_000, d=2), "cuda")
     assert "kernel fits: True, smallest C 16" in capsys.readouterr().out
     assert not tengine.default_use_kernel(
-        tconfig.RunConfig(n=45_553, m=45_553, d=2), "cuda")
+        tconfig.RunConfig(n=56_945, m=56_945, d=2), "cuda")
 
 
 def _flat(v):
