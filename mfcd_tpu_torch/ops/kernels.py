@@ -46,6 +46,11 @@ EPOCH_LAUNCHES = 0          # kernel launches by train_epoch, nowhere else
 # The open call's counter of K1 launches at C > 1, where the rows' owners
 # push each step's rows into every block of the cluster.
 PUSH_LAUNCHES = "k1.push_launches"
+# The open call's counters of K1's executed steps (one batch of one run)
+# and of its dense Adam's element updates, (n + m) d a step; the trainer
+# counts them each epoch from the training rows the host holds.
+RUN_STEPS = "k1.run_steps"
+ADAM_ELEMENTS = "k1.adam_elements"
 SMEM_PER_BLOCK = 232_448    # bytes of shared memory one Hopper block may use
 # Launch shapes: C in CLUSTER_SIZES, a run on a cluster of C blocks of 512
 # threads (C = 1: one block, no cluster), tried largest first; or PACKED, a

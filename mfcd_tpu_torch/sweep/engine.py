@@ -23,8 +23,8 @@ import torch
 
 from mfcd_tpu_torch.backend import resolve_device
 from mfcd_tpu_torch.core import prng, rng
-from mfcd_tpu_torch.core.config import (UNCAPPED_STRATEGIES, RunConfig,
-                                        SweepSpec, _next_pow2)
+from mfcd_tpu_torch.core.config import (TRAIN_RATIO, UNCAPPED_STRATEGIES,
+                                        RunConfig, SweepSpec, _next_pow2)
 from mfcd_tpu_torch.core.results import export_results
 from mfcd_tpu_torch.data.btl import LabeledSplit, label_splits, sample_and_split
 from mfcd_tpu_torch.eval.metrics import compute_all_metrics
@@ -65,7 +65,7 @@ def _pad_rows(split: LabeledSplit, rows: int) -> LabeledSplit:
         valid=_pad_last(split.valid, pad, False), count=split.count)
 
 
-_logged_kernel_choice: Optional[tuple] = None
+_printed_kernel_choices: set = set()
 
 
 def default_use_kernel(cfg: RunConfig, device) -> bool:
@@ -75,13 +75,12 @@ def default_use_kernel(cfg: RunConfig, device) -> bool:
     Mirrors ``default_use_pallas``: decided from the shape alone, before any
     launch and without the card.  Printed once per process and decision,
     with the smallest cluster size that fits."""
-    global _logged_kernel_choice
     device = torch.device(device)
     floor = min_cluster(cfg.n, cfg.m, cfg.d, cfg.batch_size)
     use = floor is not None and device.type == "cuda"
     choice = (device.type, cfg.n, cfg.m, cfg.d, cfg.batch_size, use)
-    if _logged_kernel_choice != choice:
-        _logged_kernel_choice = choice
+    if choice not in _printed_kernel_choices:
+        _printed_kernel_choices.add(choice)
         print(f"mfcd_tpu_torch: trainer = "
               f"{'fused-epoch kernel' if use else 'eager'} on {device.type} "
               f"(n={cfg.n}, m={cfg.m}, d={cfg.d}, bs={cfg.batch_size}, "
@@ -104,6 +103,19 @@ def resolve_use_kernel(cfg: RunConfig, device,
             f"use_kernel=True, but the fused-epoch kernel does not fit "
             f"n={cfg.n}, m={cfg.m}, d={cfg.d}, batch_size={cfg.batch_size}")
     return bool(use_kernel)
+
+
+def _train_rows(cfg: RunConfig, budgets, t_cap: int, r: int) -> List[int]:
+    """Each run's training rows as the host plans them, from the bucket's
+    triplet budgets (``[B]``, on the host): the sampler's 80 % split of a
+    budget, in float32 as it computes it, at most the split's capacity,
+    times K under hard labels.  A sampler that draws fewer triplets than
+    its budget leaves fewer rows; the random sampler never does."""
+    train = np.floor(np.float32(TRAIN_RATIO)
+                     * np.asarray(budgets, np.float32)).astype(np.int64)
+    train = np.minimum(train, int(TRAIN_RATIO * t_cap))
+    k = 1 if cfg.soft_label else cfg.K
+    return [int(t) * k for t in train for _ in range(r)]
 
 
 def _run_bucket_device(cfg: RunConfig, cfg_keys: torch.Tensor, s, lr,
@@ -166,7 +178,8 @@ def _run_bucket_device(cfg: RunConfig, cfg_keys: torch.Tensor, s, lr,
                 params, train, val, streams["epochs"], lr_runs, wd_runs,
                 batch_size=cfg.batch_size, num_epochs=cfg.num_epochs,
                 label_denom=cfg.K if cfg.soft_label else 1,
-                reshuffle_period=period)
+                reshuffle_period=period,
+                train_rows=_train_rows(cfg, budgets, t_cap, r))
         else:
             params, tl, vl = train_model(
                 params, train, val, streams["epochs"], lr_runs, wd_runs,

@@ -19,14 +19,15 @@ here, ``beta ** t`` there).  Per epoch:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from mfcd_tpu_torch.core import prng
 from mfcd_tpu_torch.data.btl import LabeledSplit
 from mfcd_tpu_torch.models.mf import MFParams
-from mfcd_tpu_torch.ops.kernels import EpochState, train_epoch
+from mfcd_tpu_torch.ops.kernels import (ADAM_ELEMENTS, RUN_STEPS, EpochState,
+                                        train_epoch)
 from mfcd_tpu_torch.ops.loss_pass import _pad_last, batch_losses
 from mfcd_tpu_torch.ops.shuffle import (default_reshuffle_period, mix_stream,
                                         stream_tile_width)
@@ -78,6 +79,7 @@ def train_runs_kernel(
     num_epochs: int = 30,
     label_denom: int = 1,
     reshuffle_period: int | None = None,
+    train_rows: Optional[Sequence[int]] = None,
 ) -> Tuple[MFParams, torch.Tensor, torch.Tensor]:
     """Train R runs; returns (params, train_losses [R, E], val_losses [R, E]).
 
@@ -86,7 +88,10 @@ def train_runs_kernel(
     ``[R]``.  ``label_denom`` is the denominator of the training labels
     (K under soft labels, else 1); ``z * label_denom`` must be integral.
     The device is the tensors' own: on CPU tensors every epoch runs the
-    kernel's plain version."""
+    kernel's plain version.  ``train_rows``, each run's training rows as
+    the host holds them, counts each epoch's executed steps and dense Adam
+    element updates in the open call's ``k1.run_steps`` and
+    ``k1.adam_elements`` (None: not counted); nothing is read back."""
     period = reshuffle_period or default_reshuffle_period()
     r, n, d = params.U.shape
     m = params.V.shape[1]
@@ -119,6 +124,9 @@ def train_runs_kernel(
     # fold_in(epochs key, e) for every epoch in one launch: split(k, E)
     # hashes the counters (0, e), as fold_in(k, e) does.
     epoch_keys = prng.split(epochs_keys.to(torch.int64), num_epochs)
+    run_steps = (None if train_rows is None else
+                 sum(min(-(-int(c) // batch_size), num_batches)
+                     for c in train_rows))
     train_losses, val_losses = [], []
     # Nothing in the loop reads the card back or copies a host value to it:
     # on the card an epoch is S2, K1 and the validation pass's two launches.
@@ -135,6 +143,9 @@ def train_runs_kernel(
                 tuple(a.reshape(r, num_batches, batch_size).contiguous()
                       for a in stream),
                 lr, wd, step0, count, pack=kernel_pack)
+            if run_steps is not None:
+                obs.count(RUN_STEPS, run_steps)
+                obs.count(ADAM_ELEMENTS, run_steps * (n + m) * d)
             stage("mfcd.train.val")
             epoch_params = MFParams(U=state.u_t.transpose(1, 2),
                                     V=state.v_t.transpose(1, 2))

@@ -381,6 +381,63 @@ def test_push_path_is_bit_equal_at_every_launch_shape(case):
         assert all(torch.equal(x, y) for x, y in zip(got, again)), c
 
 
+# Cell 13's widths (the benchmark's d.scan): n = m = 1000, R = 5 runs of a
+# p = 1.0 stream, 400,000 training rows a run less a masked tail in some,
+# three epochs carried from one launch to the next.  (d, bs, the launch
+# shapes besides the chooser's): at d = 10 the floor is C = 2; at bs = 512
+# a block at C = 2 holds 290 of the batch's pushed rows, so each step
+# takes its batch in two rounds.  Learning rates 5e-4 to 2e-3, about the
+# study's 1e-3: the labels here are coin flips, so training draws U and V
+# into the saddle at zero (loss ln 2).  At 5.6e-3 and 1e-2 they reach it
+# in the first epoch and sink to float32's subnormal range, where the
+# last bits decide when a run leaves the saddle: in the third epoch K1
+# and the plain version part there by up to 0.09, at d = 2 as at d = 10.
+D_SCAN = {
+    "d4": (4, 64, ()),
+    "d6": (6, 64, ()),
+    "d8": (8, 64, ()),
+    "d10": (10, 64, (2,)),
+    "d10-bs512-rounds": (10, 512, (2,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(D_SCAN))
+def test_k1_at_cell_13s_widths_for_three_epochs(case):
+    # K1 at the chooser's C, and at the floor where it is another, against
+    # the plain version epoch by epoch, and bit-equal to each other.
+    dev = _card()
+    d, bs, others = D_SCAN[case]
+    n, rows = 1000, 400_000
+    counts = [rows, rows - 37, rows - 19, rows, rows - 63]
+    floor = K.min_cluster(n, n, d, bs)
+    assert floor == (2 if d == 10 else 1)
+    for c in others:
+        assert c == floor
+        assert (K.pushed_rows(n, n, d, bs, c) < bs) == (bs == 512)
+    state, args, pack = _inputs(60 + d, n, n, d, bs, -(-rows // bs), counts,
+                                list(np.geomspace(5e-4, 2e-3, 5)), "full",
+                                dev)
+    stream, lr, wd, _, count = args
+    make = lambda: K.EpochState(*epoch_state_from_jax(*state, device=dev))
+    want = make()
+    got = {c: make() for c in (None,) + others}
+    for epoch in range(3):
+        step0 = (epoch * ((count + bs - 1) // bs)).to(torch.float32)
+        want, want_loss = K.train_epoch_reference(want, stream, lr, wd,
+                                                  step0, count, pack=pack)
+        out = {}
+        for c in got:
+            got[c], loss = K._train_epoch(got[c], stream, lr, wd, step0,
+                                          count, pack=pack, cluster=c)
+            out[c] = tuple(got[c]) + (loss,)
+        torch.cuda.synchronize()
+        for x, y in zip(tuple(want) + (want_loss,), out[None]):
+            torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-6)
+        for c in others:
+            assert all(torch.equal(x, y) for x, y in zip(out[None], out[c]))
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take():
     dev = _card()

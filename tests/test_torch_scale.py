@@ -248,7 +248,7 @@ def test_cluster_size_takes_the_floor(monkeypatch, capsys):
 
 def test_engine_picks_the_kernel_from_the_shape(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(tengine, "_logged_kernel_choice", None)
+    monkeypatch.setattr(tengine, "_printed_kernel_choices", set())
     for n, c in ((3560, 2), (5000, 2), (7168, 4), (10_000, 4)):
         cfg = tconfig.RunConfig(n=n, m=n, d=2)
         assert tengine.default_use_kernel(cfg, "cuda")
